@@ -1,0 +1,10 @@
+"""Codec ops on tensors: plain PyTorch versions and their CUDA kernels.
+
+* ``layout``      — word and state conversions between the JAX package's
+  layout and the port's;
+* ``decode``      — plain LMS decoder (CPU and CUDA tensors alike);
+* ``encode``      — plain 16-candidate encoder;
+* ``cuda_decode`` / ``cuda_encode`` — wrappers that launch the hand-written
+  kernels for CUDA tensors and take the plain versions for CPU tensors;
+* ``_build``      — builds ``csrc/*.cu`` with nvcc at first use.
+"""

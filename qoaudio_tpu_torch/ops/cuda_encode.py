@@ -1,0 +1,75 @@
+"""Wrappers of the CUDA encode kernels (``csrc/qoa_encode.cu``).
+
+Replace ``qoaudio_tpu/ops/pallas_encode.py::encode_frames_pallas`` and
+``::encode_frames_pallas_full`` — one template in one source.  For CPU
+tensors they run the plain versions (``ops/encode.py``); for CUDA tensors
+they launch the kernel on the current stream or raise.
+``masked_launches`` and ``full_launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+from . import encode as _plain
+
+masked_launches = 0
+full_launches = 0
+
+
+def _launch(state, samples, lens: Optional[torch.Tensor], device):
+    lib = _build.library()
+    F, n_win, _, n_ch = samples.shape
+    _build.require(samples, "samples", torch.int16, (F, n_win, 20, n_ch))
+    _build.require(state, "state", torch.int32, (8, n_ch))
+    if lens is not None:
+        _build.require(lens, "lens", torch.int32, (F, n_win, n_ch))
+    new_state = torch.empty((8, n_ch), dtype=torch.int32, device=device)
+    snaps = torch.empty((F, 8, n_ch), dtype=torch.int32, device=device)
+    words = torch.empty((F, n_win, n_ch), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if lens is None:
+            rc = lib.qoa_encode_frames_full_cuda(
+                samples.data_ptr(), state.data_ptr(), F, n_win, n_ch,
+                new_state.data_ptr(), snaps.data_ptr(), words.data_ptr(), stream,
+            )
+        else:
+            rc = lib.qoa_encode_frames_cuda(
+                samples.data_ptr(), lens.data_ptr(), state.data_ptr(), F, n_win,
+                n_ch, new_state.data_ptr(), snaps.data_ptr(), words.data_ptr(),
+                stream,
+            )
+    _build.check(rc, "qoa_encode_frames_cuda")
+    return new_state, snaps, words
+
+
+def encode_frames(state: torch.Tensor, samples: torch.Tensor,
+                  lens: torch.Tensor):
+    """Encode F frames x N chains (contract of ``ops.encode.encode_frames``).
+
+    state int32 (8, N); samples int16 (F, W, 20, N), zero past each
+    window's length; lens int32 (F, W, N).  Returns (new_state (8, N),
+    snaps (F, 8, N) int32, words (F, W, N) int64 logical).
+    """
+    global masked_launches
+    device = _build.kernel_device(state, samples, lens)
+    if device is None:
+        return _plain.encode_frames(state, samples, lens)
+    out = _launch(state, samples, lens, device)
+    masked_launches += 1
+    return out
+
+
+def encode_frames_full(state: torch.Tensor, samples: torch.Tensor):
+    """:func:`encode_frames` with every window full (no ``lens``)."""
+    global full_launches
+    device = _build.kernel_device(state, samples)
+    if device is None:
+        return _plain.encode_frames_full(state, samples)
+    out = _launch(state, samples, None, device)
+    full_launches += 1
+    return out

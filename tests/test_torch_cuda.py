@@ -1,0 +1,164 @@
+"""The port's CUDA kernels on the card (marker ``cuda``).
+
+Every test here needs a CUDA device and skips without one.  The machine
+with the card has no jax, so this file imports none and needs no
+conftest; run it there from the repository root with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Each kernel is compared exactly with its plain PyTorch version on CUDA
+tensors, and the fixture's full re-encode through the port matches the
+SHA-256 golden of tests/test_native.py.
+"""
+
+import hashlib
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from qoaudio_tpu_torch import bitstream, codec, native, types
+from qoaudio_tpu_torch.ops import cuda_decode, cuda_encode
+from qoaudio_tpu_torch.ops import decode as plain_decode
+from qoaudio_tpu_torch.ops import encode as plain_encode
+from qoaudio_tpu_torch.parallel import corpus
+
+pytestmark = pytest.mark.cuda
+
+FIXTURE = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "fixtures",
+    "julien_baker_sprained_ankle.qoa",
+)
+# the goldens of tests/test_native.py (test_torch_port_rules pins the copy)
+REAL_FIXTURE_SHA256 = (
+    "b8d822ffee42abe052dfaab00136e86c3c1e9eb6e86cd700867b61a9f45a3372"
+)
+FIXTURE_REENCODE_SHA256 = (
+    "e9f87726aef5d602e248dc839ac7de5c570ad869419984f00274cde76f28c19e"
+)
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def fixture_bytes():
+    with open(FIXTURE, "rb") as f:
+        data = f.read()
+    if hashlib.sha256(data).hexdigest() != REAL_FIXTURE_SHA256:
+        pytest.skip("fixture is not the reference file")
+    return data
+
+
+def _wrap_regime(seed, W, N):
+    rng = np.random.default_rng(seed)
+    wl = rng.integers(0, 1 << 63, size=(W, N), dtype=np.int64).astype(
+        np.uint64
+    ) | (rng.integers(0, 16, size=(W, N), dtype=np.uint64) << np.uint64(60))
+    st = rng.integers(-32768, 32768, size=(8, N)).astype(np.int32)
+    return wl.byteswap(), st  # raw big-endian words
+
+
+@pytest.mark.parametrize("W, N", [(256, 1000), (3, 65)])
+def test_decode_kernel_matches_plain_and_native(cuda, W, N):
+    words_be, st = _wrap_regime(W + N, W, N)
+    wd = torch.from_numpy(words_be.view(np.int64)).to(cuda)
+    sd = torch.from_numpy(st).to(cuda)
+    before = cuda_decode.launches
+    got = cuda_decode.decode_chains_words(sd, wd)
+    torch.cuda.synchronize()
+    assert cuda_decode.launches == before + 1
+    assert torch.equal(got, plain_decode.decode_chains_words(sd, wd))
+    if native.available():
+        assert np.array_equal(got.cpu().numpy(), native.decode_chains(words_be, st))
+
+
+def test_decode_kernel_fixture_chains(cuda, fixture_bytes):
+    pa = bitstream.parse_file_arrays(fixture_bytes)
+    wd = torch.from_numpy(np.ascontiguousarray(pa.words_be).view(np.int64)).to(cuda)
+    sd = torch.from_numpy(pa.state).to(cuda)
+    got = cuda_decode.decode_chains_words(sd, wd)
+    assert torch.equal(got, plain_decode.decode_chains_words(sd, wd))
+
+
+def _windows(seed, F, W, N, masked):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-32768, 32768, size=(F, W, 20, N)).astype(np.int16)
+    lens = (rng.integers(0, 21, size=(F, W, N)) if masked
+            else np.full((F, W, N), 20)).astype(np.int32)
+    x = np.where(np.arange(20)[None, None, :, None] < lens[:, :, None, :], x, 0)
+    carry = rng.integers(-65536, 65536, size=(8, N)).astype(np.int32)
+    return x.astype(np.int16), lens, carry
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("F, W, N", [(2, 16, 256), (3, 5, 33)])
+def test_encode_kernels_match_plain(cuda, masked, F, W, N):
+    x, lens, carry = (torch.from_numpy(a).to(cuda)
+                      for a in _windows(F * W + N, F, W, N, masked))
+    if masked:
+        got = cuda_encode.encode_frames(carry, x, lens)
+        want = plain_encode.encode_frames(carry, x, lens)
+    else:
+        got = cuda_encode.encode_frames_full(carry, x)
+        want = plain_encode.encode_frames_full(carry, x)
+        masked_got = cuda_encode.encode_frames(carry, x, lens)
+        for g, m in zip(got, masked_got):
+            assert torch.equal(g, m)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_masked_kernel_full_and_ended_chains_in_one_warp(cuda):
+    """The two chains of a warp: one full and one idle (length 0), both
+    idle, both full, and short windows mixed in — the warp-uniform step
+    choice and the reset of idle chains must match the plain version.
+    Samples past each length are NOT zeroed (the transcode relayout points
+    idle slots at real data): neither version may read them."""
+    F, W, N = 2, 12, 37  # odd N: the last warp has a spare half
+    x, _, carry = _windows(77, F, W, N, masked=False)
+    rng = np.random.default_rng(78)
+    pattern = rng.integers(0, 4, size=(F, W, N))
+    lens = np.where(pattern == 0, 0, 20)
+    lens = np.where(pattern == 3, rng.integers(1, 20, size=(F, W, N)), lens)
+    lens[:, : W // 2, 0::2] = 0  # even chains idle for half the windows
+    x, lens, carry = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                      for a in (x, lens.astype(np.int32), carry))
+    got = cuda_encode.encode_frames(carry, x, lens)
+    want = plain_encode.encode_frames(carry, x, lens)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_transfer_round_trip_on_cuda(cuda):
+    from qoaudio_tpu_torch.utils import transfer
+
+    rng = np.random.default_rng(3)
+    arrays = [
+        rng.integers(-(1 << 62), 1 << 62, size=(300, 7)),
+        rng.integers(-32768, 32768, size=(4, 20, 33)).astype(np.int16),
+    ]
+    ts = transfer.put_arrays(arrays, cuda)
+    assert all(t.device.type == "cuda" for t in ts)
+    back = transfer.fetch_arrays(ts)
+    for a, b in zip(arrays, back):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert b.flags.owndata  # a plain copy, not a view of pinned staging
+
+
+def test_fixture_reencode_golden(cuda, fixture_bytes):
+    out = codec.decode_all(fixture_bytes, backend="native")
+    desc = types.QoaDesc(out.num_channels, out.sample_rate, out.samples_per_channel)
+    (enc,) = corpus.batch_encode([(out.samples, desc)], cuda)
+    assert hashlib.sha256(enc).hexdigest() == FIXTURE_REENCODE_SHA256
+    corpus.host_pair_files = 0
+    (tc,) = corpus.batch_transcode([fixture_bytes], cuda)
+    assert corpus.host_pair_files == 0
+    assert hashlib.sha256(tc).hexdigest() == FIXTURE_REENCODE_SHA256
+    (dec,) = corpus.batch_decode([fixture_bytes], cuda)
+    assert np.array_equal(dec.samples, out.samples)

@@ -1,0 +1,175 @@
+"""Rules the PyTorch port keeps, checked on the CPU.
+
+* no module of ``qoaudio_tpu_torch`` imports jax;
+* the ``__constant__`` tables of the CUDA sources are the format's tables;
+* the word/state layout conversions round-trip;
+* without nvcc the kernel build raises, and a wrapper given a tensor that
+  is neither on the CPU nor on a CUDA device raises — nothing falls back;
+* the transfer and timing helpers are bit-exact / sane on the CPU.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from qoaudio_tpu import format as fmt
+from qoaudio_tpu_torch.ops import _build, cuda_decode, cuda_encode
+from qoaudio_tpu_torch.ops import layout
+from qoaudio_tpu_torch.utils import timing, transfer
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_no_module_imports_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "import qoaudio_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'qoaudio_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [k for k, v in sys.modules.items() if v is not None and (k == 'jax' or k.startswith('jax.'))]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 10  # every module was imported
+
+
+def _constant_tables():
+    tables = {}
+    for path in _build.sources():
+        with open(path) as f:
+            src = f.read()
+        for name, body in re.findall(
+            r"__constant__\s+\w+\s+(\w+)\s*\[\d*\]\s*=\s*\{([^}]*)\}", src
+        ):
+            vals = [int(v) for v in body.replace("\n", " ").split(",") if v.strip()]
+            tables.setdefault(name, []).append((os.path.basename(path), vals))
+    return tables
+
+
+def test_cuda_constant_tables_match_format():
+    tables = _constant_tables()
+    want = {
+        "kScalefactorTab": [int(v) for v in fmt.QOA_SCALEFACTOR_TAB],
+        "kReciprocalTab": [int(v) for v in fmt.QOA_RECIPROCAL_TAB],
+    }
+    assert set(tables) == set(want)
+    assert {src for src, _ in tables["kScalefactorTab"]} == {
+        "qoa_decode.cu", "qoa_encode.cu"
+    }
+    for name, copies in tables.items():
+        for src, vals in copies:
+            assert vals == want[name], f"{src}: {name}"
+
+
+def test_cuda_test_goldens_are_test_native_goldens():
+    """tests/test_torch_cuda.py carries a copy of the SHA-256 goldens (it
+    runs without conftest, on a machine with no jax); pin the copy."""
+    import test_torch_cuda
+
+    with open(os.path.join(ROOT, "tests", "test_native.py")) as f:
+        src = f.read()
+    for name in ("REAL_FIXTURE_SHA256", "FIXTURE_REENCODE_SHA256"):
+        m = re.search(name + r'\s*=\s*\(\s*"([0-9a-f]{64})"', src)
+        assert m and getattr(test_torch_cuda, name) == m.group(1)
+
+
+def test_layout_round_trips():
+    rng = np.random.default_rng(5)
+    logical = rng.integers(0, 1 << 63, size=(7, 11), dtype=np.int64).astype(
+        np.uint64
+    ) | (rng.integers(0, 2, size=(7, 11), dtype=np.uint64) << np.uint64(63))
+    w = torch.from_numpy(logical.view(np.int64))
+
+    hi, lo = layout.halves_from_words(w)
+    assert np.array_equal(hi.numpy(), (logical >> np.uint64(32)).astype(np.int64))
+    assert np.array_equal(lo.numpy(), (logical & np.uint64(0xFFFFFFFF)).astype(np.int64))
+    assert torch.equal(layout.words_from_halves(hi, lo), w)
+    # the JAX kernels' u32 halves, as numpy hands them over
+    hi32 = torch.from_numpy((logical >> np.uint64(32)).astype(np.uint32))
+    lo32 = torch.from_numpy((logical & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    assert torch.equal(layout.words_from_halves(hi32, lo32), w)
+
+    be = layout.logical_to_be(w)
+    assert np.array_equal(be.numpy(), logical.byteswap().view(np.int64))
+    assert torch.equal(layout.be_to_logical(be), w)
+
+    sf, codes = layout.unpack_words(w)
+    assert np.array_equal(sf.numpy(), (logical >> np.uint64(60)).astype(np.int32))
+    for k in range(20):
+        want = ((logical >> np.uint64(57 - 3 * k)) & np.uint64(7)).astype(np.int32)
+        assert np.array_equal(codes[:, k].numpy(), want)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "_DEFAULT_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_lib", None)
+    assert _build.find_nvcc() is None
+    with pytest.raises(_build.BuildFailed, match="nvcc not found"):
+        _build.library()
+    assert _build._lib is None
+    assert not (tmp_path / "build").exists()
+
+
+def test_wrappers_refuse_non_cpu_non_cuda_tensors():
+    meta = torch.empty((8, 4), dtype=torch.int32, device="meta")
+    words = torch.empty((2, 4), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        cuda_decode.decode_chains_words(meta, words)
+    x = torch.empty((1, 2, 20, 4), dtype=torch.int16, device="meta")
+    lens = torch.empty((1, 2, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        cuda_encode.encode_frames(meta, x, lens)
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        cuda_encode.encode_frames_full(meta, x)
+    # mixed CPU and non-CPU inputs are refused too
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        cuda_decode.decode_chains_words(torch.zeros((8, 4), dtype=torch.int32), words)
+
+
+def test_require_checks_dtype_shape_contiguity():
+    t = torch.zeros((8, 4), dtype=torch.int32)
+    _build.require(t, "state", torch.int32, (8, 4))
+    with pytest.raises(ValueError, match="state"):
+        _build.require(t, "state", torch.int64, (8, 4))
+    with pytest.raises(ValueError, match="state"):
+        _build.require(t, "state", torch.int32, (8, 5))
+    with pytest.raises(ValueError, match="contiguous"):
+        _build.require(t.t().contiguous().t(), "state", torch.int32, (8, 4))
+
+
+def test_transfer_round_trip_on_cpu():
+    rng = np.random.default_rng(1)
+    arrays = [
+        rng.integers(-(1 << 62), 1 << 62, size=(5, 3)),
+        rng.integers(-32768, 32768, size=(4, 20, 3)).astype(np.int16),
+    ]
+    ts = transfer.put_arrays(arrays, "cpu")
+    assert all(t.device.type == "cpu" for t in ts)
+    back = transfer.fetch_arrays(ts)
+    for a, b in zip(arrays, back):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    (back1,) = transfer.fetch_arrays([transfer.put_array(arrays[1], "cpu")])
+    assert np.array_equal(back1, arrays[1])
+
+
+def test_timing_helpers_on_cpu():
+    with timing.Stopwatch("cpu") as sw:
+        sum(range(1000))
+    assert sw.elapsed > 0 and sw.device_ms is None
+    assert sw.msamples_per_sec(10**6) > 0
+    best, result = timing.bench_fn(lambda a: a + 1, 41, device="cpu", iters=2)
+    assert result == 42 and best >= 0
