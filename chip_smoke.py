@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's batched corpus path once on one GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU.
 
     python3 chip_smoke.py
 
@@ -11,14 +11,27 @@ raises and exits non-zero:
 3. every kernel against its plain PyTorch version on CUDA tensors, exactly:
    the decoder on adversarial wrap-regime chains and on the fixture's
    chains, the masked and the full encoder on random windows;
-4. the main path at real size: a 33-file corpus (the bench's 32-file
-   recipe plus the fixture) through ``batch_transcode``, ``batch_decode``
-   and ``batch_encode`` on ``cuda``; every file byte-equal to the native
-   host engine, every kernel launched, no file on the host pair; each
-   kernel against its plain version again on the inputs the main path
-   gave it (the encoders' first two frames), both timed; the end-to-end
-   time and each entry point's kernel time;
-5. one JSON line of kernels, then ``{"ok": true, "device": ...}`` last.
+4. the batched corpus path at real size: a 33-file corpus (the bench's
+   32-file recipe plus the fixture) through ``batch_transcode``,
+   ``batch_decode`` and ``batch_encode`` on ``cuda``; every file
+   byte-equal to the native host engine, every kernel launched, no file on
+   the host pair; each kernel against its plain version again on the
+   inputs the main path gave it (the encoders' first two frames), both
+   timed; the end-to-end time and each entry point's kernel time;
+5. the public entry points on ``cuda``: ``decode_all``,
+   ``open_and_decode_all``, ``decode_range`` and ``encode_all`` on the
+   fixture (the re-encode's SHA-256 is the golden of tests/test_native.py),
+   ``QoaDecoder`` with prefetch and in streaming mode across a format
+   change, ``QoaEncoder`` frame by frame with its state handed to a second
+   encoder and one-shot, ``encode_all_batch`` on the corpus, and the CLI in
+   process (``transcode --hbm``, ``transcode``, ``decode``, ``encode``);
+   every output equal to the native engine's; every call on the card
+   launches exactly the kernels its path needs (counted from 0 around each
+   call) and puts no file on the host pair; each call's median wall time
+   over 3 calls per side, the sides alternating which runs first, beside
+   the native engine's for the same call;
+6. one JSON line of entry points, one of kernels, then
+   ``{"ok": true, "device": ...}`` last.
 
 Without a CUDA device it exits 2 and prints no result.  It never imports
 jax: the port and the host tier it re-exports do not need it.
@@ -27,11 +40,14 @@ jax: the port and the host tier it re-exports do not need it.
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 
 sys.modules["jax"] = None  # the port must run without jax; importing it fails
 
@@ -41,6 +57,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "julien_baker_sprained_ankle.qoa")
 SEED = 2026
 ENCODE_FRAMES_COMPARED = 2  # the plain encoder takes ~2 s per frame on the card
+# the golden of tests/test_native.py (tests/test_torch_port_rules.py pins it)
+FIXTURE_REENCODE_SHA256 = (
+    "e9f87726aef5d602e248dc839ac7de5c570ad869419984f00274cde76f28c19e"
+)
+STREAM_ENCODE_SPLIT = 100  # frames the first streaming encoder takes
+DECODER_READAHEAD = 32  # frames per QoaDecoder batch (prefetch needs > 1)
+ENTRY_REPS = 3  # timed calls per side of each phase-5 entry point
 
 
 class SmokeFailure(RuntimeError):
@@ -352,7 +375,11 @@ def main() -> int:
     for key, ms in main_path_ms.items():
         kernels[key]["main_path_ms"] = ms
 
-    # ---- phase 5: results ----
+    # ---- phase 5: the public entry points on the card ----
+    entry_points = phase5(dev, tag, fixture, fix_dec, files, streams, want_tc, want_enc)
+
+    # ---- phase 6: results ----
+    say(json.dumps({"entry_points": entry_points}))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "timed_shape", "main_path_ms")
     say(json.dumps({"kernels": [{k: v[k] for k in order} for v in kernels.values()]}))
@@ -360,6 +387,231 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase5(dev, tag, fixture, fix_dec, files, streams, want_tc, want_enc):
+    """Every public entry point on ``dev``, each output held against the
+    native engine's for the same call; returns the entry-point times."""
+    from qoaudio_tpu.format import QOA_SLICES_PER_FRAME, qoa_frame_size
+    from qoaudio_tpu.utils.wav import read_wav
+
+    from qoaudio_tpu_torch import (QoaDecoder, QoaDesc, QoaEncoder, cli,
+                                   decode_all, decode_range, encode_all,
+                                   encode_all_batch, open_and_decode_all)
+    from qoaudio_tpu_torch.ops import cuda_decode, cuda_encode
+    from qoaudio_tpu_torch.parallel import corpus
+    from qoaudio_tpu_torch.utils.timing import Stopwatch
+
+    T = dict(backend="torch", device=dev)
+    N = dict(backend="native")
+    fix_desc = QoaDesc(fix_dec.num_channels, fix_dec.sample_rate,
+                       fix_dec.samples_per_channel)
+    pcm = fix_dec.samples
+    C, n = fix_desc.channels, fix_desc.samples
+    results = []
+
+    def same_pcm(a, b):
+        return (a.num_channels, a.sample_rate) == (b.num_channels, b.sample_rate) \
+            and np.array_equal(a.samples, b.samples)
+
+    def counts():
+        return {"decode": cuda_decode.launches, "masked": cuda_encode.masked_launches,
+                "full": cuda_encode.full_launches, "host_pair_files": corpus.host_pair_files}
+
+    def reset_counts():
+        cuda_decode.launches = 0
+        cuda_encode.masked_launches = 0
+        cuda_encode.full_launches = 0
+        corpus.host_pair_files = 0
+
+    def entry(name, torch_call, native_call, launches, same=lambda a, b: a == b):
+        """Run both sides ENTRY_REPS times, alternating which goes first.
+        Every torch call must make exactly ``launches`` (kernel -> count;
+        the others 0) with no file on the host pair, counted from 0 just
+        before the call and read just after it."""
+        want_counts = {"decode": 0, "masked": 0, "full": 0, "host_pair_files": 0,
+                       **launches}
+        t_ms, n_ms = [], []
+        for rep in range(ENTRY_REPS):
+            for side in ((0, 1) if rep % 2 == 0 else (1, 0)):
+                if side == 0:
+                    reset_counts()
+                    with Stopwatch(dev) as sw:
+                        got = torch_call()
+                    seen = counts()
+                    require(seen == want_counts,
+                            f"{name}: launches {seen}, expected {want_counts}")
+                    t_ms.append(sw.elapsed * 1e3)
+                else:
+                    with Stopwatch() as sn:
+                        want = native_call()
+                    n_ms.append(sn.elapsed * 1e3)
+            require(same(got, want), f"{name}: torch output != native output")
+        if max(t_ms) < min(n_ms):
+            faster = "torch"
+        elif max(n_ms) < min(t_ms):
+            faster = "native"
+        else:
+            faster = "unresolved"  # the two sides' ranges overlap
+        t_med, n_med = statistics.median(t_ms), statistics.median(n_ms)
+        results.append({"name": name, "ms": t_med, "native_ms": n_med,
+                        "ms_all": t_ms, "native_ms_all": n_ms, "faster": faster,
+                        "launches": {k: want_counts[k] for k in ("decode", "masked", "full")}})
+        for k in total:
+            total[k] += want_counts[k]
+        say(f"phase 5: {name} == native, launches {launches}: torch median "
+            f"{t_med:.3f} ms ({', '.join(f'{t:.3f}' for t in t_ms)}), native median "
+            f"{n_med:.3f} ms ({', '.join(f'{t:.3f}' for t in n_ms)}), faster: "
+            f"{faster} {tag}")
+        return got
+
+    # launches of the chunked encoder (64 frames per launch) over F frames
+    # when the leading f_full frames of every chain are full
+    def chunked(F, f_full, chunk=64):
+        full = sum(1 for f0 in range(0, F, chunk) if min(f0 + chunk, F) <= f_full)
+        return {"full": full, "masked": -(-F // chunk) - full}
+
+    n_frames = -(-n // 5120)
+    fix_enc = chunked(n_frames, n // 5120)
+    corpus_enc = chunked(max(-(-d.samples // 5120) for _, d in files),
+                         min(d.samples // 5120 for _, d in files))
+    corpus_tc = {"decode": 1, **corpus_enc}
+    total = {"decode": 0, "masked": 0, "full": 0}
+
+    one_decode = {"decode": 1}
+    entry("decode_all", lambda: decode_all(fixture, **T),
+          lambda: decode_all(fixture, **N), one_decode, same_pcm)
+    entry("open_and_decode_all", lambda: open_and_decode_all(FIXTURE, **T),
+          lambda: open_and_decode_all(FIXTURE, **N), one_decode, same_pcm)
+    for lo, hi in ((5000, 12000), (n - 3100, n + 10)):  # a frame edge, the tail
+        entry(f"decode_range[{lo}:{hi}]", lambda: decode_range(fixture, lo, hi, **T),
+              lambda: decode_range(fixture, lo, hi, **N), one_decode, same_pcm)
+    enc = entry("encode_all", lambda: encode_all(pcm, fix_desc, **T),
+                lambda: encode_all(pcm, fix_desc, **N), fix_enc)
+    require(enc == want_enc[-1], "encode_all != native encode")
+    require(hashlib.sha256(enc).hexdigest() == FIXTURE_REENCODE_SHA256,
+            "fixture re-encode differs from the golden")
+
+    def stream_decode(**kw):
+        dec = QoaDecoder.open(FIXTURE, readahead=DECODER_READAHEAD, **kw)
+        try:
+            out = dec.decode_pending()
+            require(dec.prefetch_hits > 0 or kw["backend"] != "torch",
+                    "QoaDecoder never prefetched")
+            return out
+        finally:
+            dec.into_inner().close()
+
+    entry("QoaDecoder.open+decode_pending", lambda: stream_decode(**T),
+          lambda: stream_decode(**N), {"decode": -(-n_frames // DECODER_READAHEAD)},
+          lambda a, b: np.array_equal(a, b))
+
+    fsize = qoa_frame_size(C, QOA_SLICES_PER_FRAME)
+    other = encode_all(pcm.reshape(-1, C)[:3000, 0].copy(), QoaDesc(1, 22050, 3000), **N)
+
+    def network_stream(**kw):
+        dec = QoaDecoder.new_streaming(**kw)
+        a = dec.decode_frame(fixture[8 : 8 + 2 * fsize])  # two stereo frames
+        b = dec.decode_frame(other[8:])  # then mono at another rate
+        return a, b, dec.current_frame_header()
+
+    got = entry("QoaDecoder.new_streaming (format change)",
+                lambda: network_stream(**T), lambda: network_stream(**N),
+                {"decode": 2},  # one per decode_frame call
+                lambda a, b: all(np.array_equal(x, y) for x, y in zip(a[:2], b[:2]))
+                and a[2] == b[2])
+    require(np.array_equal(got[0], pcm[: 2 * 5120 * C]), "streamed frames != fixture PCM")
+
+    def stream_encode(**kw):
+        e1 = QoaEncoder(fix_desc, **kw)
+        out = io.BytesIO()
+        e1.write_header(out)
+        split = STREAM_ENCODE_SPLIT * 5120
+        for off in range(0, split, 5120):
+            e1.encode_frame(pcm[C * off : C * (off + 5120)], out)
+        e2 = QoaEncoder(fix_desc, **kw)  # resumes from e1's state
+        e2.set_state(e1.get_state())
+        for off in range(split, n, 5120):
+            e2.encode_frame(pcm[C * off : C * min(n, off + 5120)], out)
+        return out.getvalue()
+
+    got = entry(f"QoaEncoder.encode_frame x{n_frames} (state handed over)",
+                lambda: stream_encode(**T), lambda: stream_encode(**N),
+                {"full": n // 5120, "masked": n_frames - n // 5120})
+    require(got == want_enc[-1], "streamed encode != native encode")
+    results[-1]["ms_per_frame"] = results[-1]["ms"] / n_frames
+    results[-1]["native_ms_per_frame"] = results[-1]["native_ms"] / n_frames
+    say(f"phase 5: streaming encode {results[-1]['ms_per_frame']:.4f} ms/frame "
+        f"on torch, {results[-1]['native_ms_per_frame']:.4f} ms/frame native {tag}")
+    entry("QoaEncoder.encode", lambda: QoaEncoder(fix_desc, **T).encode(pcm),
+          lambda: QoaEncoder(fix_desc, **N).encode(pcm), fix_enc)
+
+    got = entry(f"encode_all_batch ({len(files)} files)", lambda: encode_all_batch(files, **T),
+                lambda: encode_all_batch(files, **N), corpus_enc)
+    require(got == want_enc, "encode_all_batch != native encode")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, s in enumerate(streams):
+            paths.append(os.path.join(tmp, f"in{i:02d}.qoa"))
+            with open(paths[-1], "wb") as f:
+                f.write(s)
+
+        def run_cli(argv, out_dir=None):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            require(rc == 0, f"cli {' '.join(argv[:4])} ... exited {rc}")
+            if out_dir is None:
+                return None
+            outs = []
+            for p in paths:
+                with open(os.path.join(out_dir, os.path.basename(p)), "rb") as f:
+                    outs.append(f.read())
+            return outs
+
+        def d(name):
+            return os.path.join(tmp, name)
+
+        def cli_transcode(global_opts, *opts):
+            out_dir = tempfile.mkdtemp(dir=tmp)  # a fresh one for every call
+            return run_cli([*global_opts, "transcode", *paths, *opts,
+                            "--out-dir", out_dir], out_dir)
+
+        on_card, native_cli = ["--device", str(dev)], ["--backend", "native"]
+        got = entry(f"cli transcode --hbm ({len(paths)} files)",
+                    lambda: cli_transcode(on_card, "--hbm"),
+                    lambda: cli_transcode(native_cli), corpus_tc)
+        require(got == want_tc, "cli transcode --hbm != native pair")
+        got = entry(f"cli transcode ({len(paths)} files)",
+                    lambda: cli_transcode(on_card),
+                    lambda: cli_transcode(native_cli), corpus_tc)
+        require(got == want_tc, "cli transcode != native pair")
+
+        def cli_decode(backend, wav):
+            run_cli(["--backend", backend, "--device", str(dev), "decode", FIXTURE, wav])
+            return read_wav(wav)[0]
+
+        got = entry("cli decode", lambda: cli_decode("torch", d("t.wav")),
+                    lambda: cli_decode("native", d("n.wav")), one_decode,
+                    lambda a, b: np.array_equal(a, b))
+        require(np.array_equal(got, pcm), "cli decode != fixture PCM")
+
+        def cli_encode(backend, out):
+            run_cli(["--backend", backend, "--device", str(dev), "encode", d("t.wav"), out])
+            with open(out, "rb") as f:
+                return f.read()
+
+        got = entry("cli encode", lambda: cli_encode("torch", d("t.qoa")),
+                    lambda: cli_encode("native", d("n.qoa")), fix_enc)
+        require(hashlib.sha256(got).hexdigest() == FIXTURE_REENCODE_SHA256,
+                "cli encode differs from the golden")
+
+    say(f"phase 5: launches per pass over the entry points decode={total['decode']} "
+        f"masked={total['masked']} full={total['full']}, host_pair_files=0")
+    for key, k in total.items():
+        require(k > 0, f"kernel {key} never launched by the entry points")
+    return results
 
 
 if __name__ == "__main__":

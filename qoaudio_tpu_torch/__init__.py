@@ -1,19 +1,84 @@
 """qoaudio_tpu_torch — the QOA codec's device tier in PyTorch and CUDA.
 
-The port of ``qoaudio_tpu``'s batched corpus path (decode -> relayout ->
-encode) to PyTorch, with the Pallas kernels rewritten by hand in CUDA C++
-for Hopper (``csrc/``).  Plain tensor functions stand where the JAX
-package has jitted ones; every public entry point takes an explicit
-``device``.  A CPU device runs the plain PyTorch versions of the kernels,
-a CUDA device runs the kernels themselves, and nothing falls back from
-one to the other.
+The port of ``qoaudio_tpu`` to PyTorch, with the Pallas kernels rewritten
+by hand in CUDA C++ for Hopper (``csrc/``).  Its public entry points are
+the JAX package's, with a ``"torch"`` backend where that package has
+``"jax"``: the one-shot ``codec`` functions, ``QoaDecoder`` /
+``QoaEncoder``, ``QoaPcmSource``, the batched corpus layer
+(``parallel``) and the CLI (``python -m qoaudio_tpu_torch``).  The
+``"torch"`` backend takes an explicit ``device``: a CPU device runs the
+plain PyTorch versions of the kernels, a CUDA device runs the kernels
+themselves, and nothing falls back from one to the other.
 
-The host tier (format, bitstream, codec, types, native engine) imports no
+The host tier (format, bitstream, types, errors, native engine) imports no
 jax, so the port re-exports it from ``qoaudio_tpu`` instead of copying it.
 This package never imports jax.
 """
 
-from qoaudio_tpu import bitstream, codec, native, types  # noqa: F401
+from qoaudio_tpu import bitstream, native, types  # noqa: F401
 from qoaudio_tpu import format  # noqa: F401,A004
+from qoaudio_tpu.errors import (  # noqa: F401
+    DecodeError,
+    EncodeError,
+    IncompatibleFrame,
+    InvalidChannels,
+    InvalidFrameHeader,
+    InvalidSampleRate,
+    InvalidSamples,
+    IoError,
+    NoSamples,
+    NotQoaFile,
+    QoaError,
+)
+from qoaudio_tpu.types import (  # noqa: F401
+    DecodedQoa,
+    FixedSamples,
+    FrameHeader,
+    ProcessingMode,
+    QoaDesc,
+    Streaming,
+)
 
-__all__ = ["bitstream", "codec", "format", "native", "types"]
+from . import codec  # noqa: F401
+from .codec import (  # noqa: F401
+    decode_all,
+    decode_range,
+    encode_all,
+    encode_all_batch,
+    open_and_decode_all,
+)
+from .source import QoaPcmSource  # noqa: F401
+from .streaming import QoaDecoder, QoaEncoder  # noqa: F401
+
+__all__ = [
+    "bitstream",
+    "codec",
+    "format",
+    "native",
+    "types",
+    "DecodedQoa",
+    "FixedSamples",
+    "FrameHeader",
+    "ProcessingMode",
+    "QoaDesc",
+    "Streaming",
+    "decode_all",
+    "decode_range",
+    "encode_all",
+    "encode_all_batch",
+    "open_and_decode_all",
+    "QoaDecoder",
+    "QoaEncoder",
+    "QoaPcmSource",
+    "DecodeError",
+    "EncodeError",
+    "IncompatibleFrame",
+    "InvalidChannels",
+    "InvalidFrameHeader",
+    "InvalidSampleRate",
+    "InvalidSamples",
+    "IoError",
+    "NoSamples",
+    "NotQoaFile",
+    "QoaError",
+]

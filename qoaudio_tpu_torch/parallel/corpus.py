@@ -104,19 +104,24 @@ def _decode_parsed(parsed, device):
     return cuda_decode.decode_chains_words(state_d, words_d), offs
 
 
-def _interleave_file(dec_sub: torch.Tensor, p) -> torch.Tensor:
-    """One file's decoded chains (W_i, 20, F*C) -> flat interleaved PCM,
-    each frame trimmed to its sample count."""
-    F, C = p.n_frames, p.channels
-    n_win = dec_sub.shape[0]
-    arr = (
-        dec_sub.reshape(n_win, fmt.QOA_SLICE_LEN, F, C)
+def frame_major(dec: torch.Tensor, F: int, C: int) -> torch.Tensor:
+    """Decoded chains (W, 20, F*C), chain = frame * C + channel -> the
+    frames' untrimmed interleaved PCM (F, W*20, C), on the same device."""
+    n_win = dec.shape[0]
+    return (
+        dec.reshape(n_win, fmt.QOA_SLICE_LEN, F, C)
         .permute(2, 0, 1, 3)
         .reshape(F, n_win * fmt.QOA_SLICE_LEN, C)
     )
+
+
+def _interleave_file(dec_sub: torch.Tensor, p) -> torch.Tensor:
+    """One file's decoded chains (W_i, 20, F*C) -> flat interleaved PCM,
+    each frame trimmed to its sample count."""
+    arr = frame_major(dec_sub, p.n_frames, p.channels)
     spf = p.samples_per_frame
     last = arr[-1, : int(spf[-1])].reshape(-1)
-    if F == 1:
+    if p.n_frames == 1:
         return last
     # every non-final frame of a parsed stream has spf[0] samples
     return torch.cat([arr[:-1, : int(spf[0])].reshape(-1), last])
@@ -127,7 +132,8 @@ def _encode_chunked(state, n_frames: int, chunk: int, f_full: int, stage):
     carried on the device.  ``stage(f0, f1, full)`` returns the chunk's
     (samples, lens) on the device (lens None when ``full``).  Chunks
     below ``f_full`` — where every window of every chain holds 20 samples
-    — take the full-window kernel.  Returns (snaps, words) on the device.
+    — take the full-window kernel.  Returns (state, snaps, words) on the
+    device.
     """
     snaps, words = [], []
     for f0 in range(0, n_frames, chunk):
@@ -140,21 +146,24 @@ def _encode_chunked(state, n_frames: int, chunk: int, f_full: int, stage):
             state, s, w = cuda_encode.encode_frames(state, x, lens)
         snaps.append(s)
         words.append(w)
-    return torch.cat(snaps), torch.cat(words)
+    return state, torch.cat(snaps), torch.cat(words)
 
 
-def batch_encode(
+def encode_chains(
     files: Sequence[tuple[np.ndarray, QoaDesc]],
     device,
     chunk_frames: int = 64,
-) -> List[bytes]:
-    """Encode many PCM streams as one batched chain axis on ``device``.
+    state: Optional[np.ndarray] = None,
+):
+    """Encode many PCM streams, each channel one chain, on ``device``.
 
-    Returns QOA bytes per file, each bit-exact with single-file encoding
-    (chains are independent; zero-length padding windows are inert).
+    ``state`` is the int32 (8, N) LMS the chains start from (N = all
+    files' channels in order; default: the encoder's initial state).
+    Returns host arrays (state (8, N) after the last sample, snaps
+    (F, 8, N), words (F, W, N) uint64 logical) and each file's first
+    chain.  The last frame's padding windows pass the LMS through, so the
+    returned state is the one after each file's last real sample.
     """
-    if not files:
-        return []
     for pcm, desc in files:
         codec._validate_desc(desc)
         if np.asarray(pcm).size != desc.samples * desc.channels:
@@ -191,11 +200,27 @@ def batch_encode(
         cx_d, cl_d = put_arrays([cx, cl], device)
         return cx_d, cl_d
 
-    state = put_array(initial_encoder_state(0, N), device)
-    snaps_d, words_d = _encode_chunked(state, F_max, chunk_frames, f_full, stage)
-    snaps, words = fetch_arrays([snaps_d, words_d])
-    words = words.view(np.uint64)
+    if state is None:
+        state = initial_encoder_state(0, N)
+    state_d = put_array(np.ascontiguousarray(state, np.int32), device)
+    state, snaps, words = fetch_arrays(
+        _encode_chunked(state_d, F_max, chunk_frames, f_full, stage))
+    return state, snaps, words.view(np.uint64), offsets
 
+
+def batch_encode(
+    files: Sequence[tuple[np.ndarray, QoaDesc]],
+    device,
+    chunk_frames: int = 64,
+) -> List[bytes]:
+    """Encode many PCM streams as one batched chain axis on ``device``.
+
+    Returns QOA bytes per file, each bit-exact with single-file encoding
+    (chains are independent; zero-length padding windows are inert).
+    """
+    if not files:
+        return []
+    _, snaps, words, offsets = encode_chains(files, device, chunk_frames)
     out: List[bytes] = []
     for (_, d), off in zip(files, offsets):
         C = d.channels
@@ -234,11 +259,16 @@ def batch_decode(streams: Sequence[bytes], device) -> List[DecodedQoa]:
             else:
                 good.append(i)
         if good:
-            for i, o in zip(good, batch_decode([streams[i] for i in good], device)):
+            for i, o in zip(good, decode_parsed([parsed[i] for i in good], device)):
                 outs[i] = o
         return outs
+    return decode_parsed(parsed, device)
 
-    dec, offs = _decode_parsed(parsed, device)
+
+def decode_parsed(parsed, device) -> List[DecodedQoa]:
+    """Decode streams parsed by ``bs.parse_file_arrays`` in ONE decode
+    launch on ``device``."""
+    dec, offs = _decode_parsed(parsed, torch.device(device))
     flat = []
     for p, off in zip(parsed, offs):
         k = p.n_frames * p.channels
@@ -372,7 +402,7 @@ def batch_transcode(
         return x, None if full else _transcode_lens(samples_d, f0, f1, W_enc)
 
     state = put_array(initial_encoder_state(0, Ne), device)
-    snaps_d, words_d = _encode_chunked(state, F_max, chunk_frames, f_full, stage)
+    _, snaps_d, words_d = _encode_chunked(state, F_max, chunk_frames, f_full, stage)
 
     # tight per-file packing: only real compressed data crosses to the host
     sp = torch.cat([snaps_d[:F_i, :, e : e + C].reshape(-1)

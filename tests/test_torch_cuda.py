@@ -162,3 +162,57 @@ def test_fixture_reencode_golden(cuda, fixture_bytes):
     assert hashlib.sha256(tc).hexdigest() == FIXTURE_REENCODE_SHA256
     (dec,) = corpus.batch_decode([fixture_bytes], cuda)
     assert np.array_equal(dec.samples, out.samples)
+
+
+def test_codec_entry_points_on_card(cuda, fixture_bytes, tmp_path):
+    from qoaudio_tpu_torch import open_and_decode_all
+
+    want = codec.decode_all(fixture_bytes, backend="native")
+    before = cuda_decode.launches
+    got = codec.decode_all(fixture_bytes, backend="torch", device=cuda)
+    assert cuda_decode.launches == before + 1
+    assert np.array_equal(got.samples, want.samples)
+    p = tmp_path / "f.qoa"
+    p.write_bytes(fixture_bytes)
+    assert np.array_equal(
+        open_and_decode_all(str(p), backend="torch", device=cuda).samples, want.samples)
+    r = codec.decode_range(fixture_bytes, 5000, 12000, backend="torch", device=cuda)
+    assert np.array_equal(r.samples, want.samples[2 * 5000 : 2 * 12000])
+
+    desc = types.QoaDesc(want.num_channels, want.sample_rate, want.samples_per_channel)
+    full, masked = cuda_encode.full_launches, cuda_encode.masked_launches
+    enc = codec.encode_all(want.samples, desc, backend="torch", device=cuda)
+    assert hashlib.sha256(enc).hexdigest() == FIXTURE_REENCODE_SHA256
+    assert cuda_encode.full_launches > full and cuda_encode.masked_launches > masked
+
+
+def test_streaming_decoder_on_card(cuda, fixture_bytes, tmp_path):
+    from qoaudio_tpu_torch import QoaDecoder
+
+    p = tmp_path / "f.qoa"
+    p.write_bytes(fixture_bytes)
+    dec = QoaDecoder.open(str(p), backend="torch", device=cuda, readahead=32)
+    before = cuda_decode.launches
+    got = dec.decode_pending()
+    assert cuda_decode.launches > before and dec.prefetch_hits >= 1
+    assert np.array_equal(got, codec.decode_all(fixture_bytes, backend="native").samples)
+    dec.into_inner().close()
+
+
+def test_streaming_encoder_on_card(cuda):
+    import io
+
+    from qoaudio_tpu_torch import QoaEncoder
+
+    rng = np.random.default_rng(8)
+    n = 3 * 5120 + 1234
+    pcm = rng.integers(-30000, 30000, size=2 * n).astype(np.int16)
+    desc = types.QoaDesc(2, 44100, n)
+    want = codec.encode_all(pcm, desc, backend="native")
+    assert QoaEncoder(desc, backend="torch", device=cuda).encode(pcm) == want
+    enc = QoaEncoder(desc, backend="torch", device=cuda)
+    out = io.BytesIO()
+    enc.write_header(out)
+    for off in range(0, n, 5120):
+        enc.encode_frame(pcm[2 * off : 2 * min(n, off + 5120)], out)
+    assert out.getvalue() == want

@@ -1,6 +1,8 @@
 """Rules the PyTorch port keeps, checked on the CPU.
 
-* no module of ``qoaudio_tpu_torch`` imports jax;
+* no module of ``qoaudio_tpu_torch`` imports jax, and with jax blocked and
+  no native engine its codec runs on the given device or raises
+  ValueError; its ``codec`` is its own module;
 * the ``__constant__`` tables of the CUDA sources are the format's tables;
 * the word/state layout conversions round-trip;
 * without nvcc the kernel build raises, and a wrapper given a tensor that
@@ -173,3 +175,68 @@ def test_timing_helpers_on_cpu():
     assert sw.msamples_per_sec(10**6) > 0
     best, result = timing.bench_fn(lambda a: a + 1, 41, device="cpu", iters=2)
     assert result == 42 and best >= 0
+
+
+def test_codec_is_the_ports_own():
+    import qoaudio_tpu
+    import qoaudio_tpu_torch
+
+    assert qoaudio_tpu_torch.codec is not qoaudio_tpu.codec
+    assert qoaudio_tpu_torch.codec.__name__ == "qoaudio_tpu_torch.codec"
+    assert qoaudio_tpu_torch.decode_all is qoaudio_tpu_torch.codec.decode_all
+
+
+def test_codec_without_jax_or_native_engine(tmp_path):
+    """With jax blocked and no native engine, the port's codec runs on the
+    given device, or raises ValueError when none is given — never
+    ImportError."""
+    from qoaudio_tpu import codec as jax_codec
+    from qoaudio_tpu.types import QoaDesc
+
+    pcm = np.random.default_rng(9).integers(-9000, 9000, 600).astype(np.int16)
+    data = jax_codec.encode_all(pcm, QoaDesc(2, 44100, 300), backend="numpy")
+    src = tmp_path / "s.qoa"
+    src.write_bytes(data)
+    np.save(tmp_path / "pcm.npy", pcm)
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "from qoaudio_tpu import native\n"
+        "native.available = lambda: False\n"
+        "import qoaudio_tpu_torch as qt\n"
+        f"data = open({str(src)!r}, 'rb').read()\n"
+        f"pcm = np.load({str(tmp_path / 'pcm.npy')!r})\n"
+        "desc = qt.QoaDesc(2, 44100, 300)\n"
+        "want = qt.decode_all(data, backend='numpy').samples\n"
+        "assert np.array_equal(qt.decode_all(data, device='cpu').samples, want)\n"
+        "assert qt.encode_all(pcm, desc, device='cpu') == data\n"
+        "calls = [lambda: qt.decode_all(data), lambda: qt.encode_all(pcm, desc),\n"
+        "         lambda: qt.QoaEncoder(desc), lambda: qt.decode_range(data, 0, 9),\n"
+        "         lambda: qt.encode_all_batch([(pcm, desc)])]\n"
+        "for call in calls:\n"
+        "    try:\n"
+        "        call()\n"
+        "    except ValueError:\n"
+        "        continue\n"
+        "    raise AssertionError('no ValueError')\n"
+        "assert not [k for k, v in sys.modules.items() if v is not None and k.startswith('jax')]\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_chip_smoke_golden_is_test_native_golden():
+    """chip_smoke.py carries a copy of the fixture re-encode golden (it
+    imports nothing from the tests); pin the copy."""
+    import test_torch_cuda
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    m = re.search(r'FIXTURE_REENCODE_SHA256\s*=\s*\(\s*"([0-9a-f]{64})"', src)
+    assert m and m.group(1) == test_torch_cuda.FIXTURE_REENCODE_SHA256
