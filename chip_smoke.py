@@ -30,7 +30,19 @@ raises and exits non-zero:
    call) and puts no file on the host pair; each call's median wall time
    over 3 calls per side, the sides alternating which runs first, beside
    the native engine's for the same call;
-6. one JSON line of entry points, one of kernels, then
+6. the rest of the corpus layer on the card: ``batch_transcode``,
+   ``batch_decode`` and ``batch_encode`` on the smoke corpus over
+   ``make_mesh()`` (every visible card) and over a mesh that lists
+   ``cuda:0`` four times (its shards run in turn), each byte-equal to the
+   native engine with its exact launches and timed (median of 3) beside
+   the unsharded call; the transcode handle (``return_fused_handle``):
+   its re-run gives the same bytes, and its device-side median beside the
+   end-to-end median splits off the host share; length bucketing on a
+   mixed corpus past two resident waves of encode chains (one-frame mono
+   clips and 64-frame stereo files): the wave size, the buckets chosen,
+   ``bucket="auto"`` against ``bucket=False``, both byte-equal to native,
+   and the smoke corpus held to one launch under ``"auto"``;
+7. one JSON line of entry points, one of kernels, then
    ``{"ok": true, "device": ...}`` last.
 
 Without a CUDA device it exits 2 and prints no result.  It never imports
@@ -64,6 +76,8 @@ FIXTURE_REENCODE_SHA256 = (
 STREAM_ENCODE_SPLIT = 100  # frames the first streaming encoder takes
 DECODER_READAHEAD = 32  # frames per QoaDecoder batch (prefetch needs > 1)
 ENTRY_REPS = 3  # timed calls per side of each phase-5 entry point
+MIX_CLIP_SAMPLES = 4410  # phase 6's one-frame mono clips (0.1 s at 44.1 kHz)
+MIX_LONG_FILES, MIX_LONG_FRAMES = 32, 64  # and its long stereo files
 
 
 class SmokeFailure(RuntimeError):
@@ -116,6 +130,71 @@ def bench_corpus(pcm: np.ndarray, channels: int, QoaDesc):
     return files
 
 
+def kernel_wrappers() -> dict:
+    """(module, wrapper attribute, plain version) of each kernel."""
+    from qoaudio_tpu_torch.ops import cuda_decode, cuda_encode
+    from qoaudio_tpu_torch.ops import decode as plain_decode
+    from qoaudio_tpu_torch.ops import encode as plain_encode
+
+    return {
+        "decode": (cuda_decode, "decode_chains_words", plain_decode.decode_chains_words),
+        "masked": (cuda_encode, "encode_frames", plain_encode.encode_frames),
+        "full": (cuda_encode, "encode_frames_full", plain_encode.encode_frames_full),
+    }
+
+
+@contextlib.contextmanager
+def wrapped(make):
+    """Route every kernel wrapper call through ``make(key, wrapper)``."""
+    wrappers = kernel_wrappers()
+    saved = {k: getattr(mod, attr) for k, (mod, attr, _) in wrappers.items()}
+    for k, (mod, attr, _) in wrappers.items():
+        setattr(mod, attr, make(k, saved[k]))
+    try:
+        yield
+    finally:
+        for k, (mod, attr, _) in wrappers.items():
+            setattr(mod, attr, saved[k])
+
+
+def balanced_groups(parsed, k: int):
+    """The mesh transcode's partition of files over ``k`` devices, worked
+    out here apart from the corpus layer: files longest chain first (then
+    samples x channels, then input order), each to the device with the
+    least encode work so far (the first such device on a tie); each group
+    in input order."""
+    work = [int(p.samples_per_frame.sum()) * p.channels for p in parsed]
+    load, groups = [0] * k, [[] for _ in range(k)]
+    for i in sorted(range(len(parsed)), key=lambda i: (-parsed[i].n_frames, -work[i], i)):
+        g = load.index(min(load))
+        groups[g].append(i)
+        load[g] += work[i]
+    return [sorted(g) for g in groups]
+
+
+def smoke_corpus(fixture: bytes):
+    """The 33-file smoke corpus (the bench's 32 files plus the fixture) and
+    the native engine's answers: (fixture PCM, files, streams, decodes,
+    decode -> encode pairs, encodes)."""
+    from qoaudio_tpu_torch import codec, types
+
+    QoaDesc = types.QoaDesc
+    fix_dec = codec.decode_all(fixture, backend="native")
+    files = bench_corpus(fix_dec.samples, fix_dec.num_channels, QoaDesc)
+    files.append((fix_dec.samples, QoaDesc(fix_dec.num_channels, fix_dec.sample_rate,
+                                           fix_dec.samples_per_channel)))
+    streams = [codec.encode_all(p, d, backend="native") for p, d in files[:-1]]
+    streams.append(fixture)
+    want_dec = [codec.decode_all(s, backend="native") for s in streams]
+    want_tc = [
+        codec.encode_all(o.samples, QoaDesc(o.num_channels, o.sample_rate,
+                                             o.samples_per_channel), backend="native")
+        for o in want_dec
+    ]
+    want_enc = [codec.encode_all(p, d, backend="native") for p, d in files]
+    return fix_dec, files, streams, want_dec, want_tc, want_enc
+
+
 def main() -> int:
     import torch
 
@@ -124,14 +203,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from qoaudio_tpu_torch import bitstream, codec, native, types
+    from qoaudio_tpu_torch import bitstream, native
     from qoaudio_tpu_torch.ops import _build, cuda_decode, cuda_encode
-    from qoaudio_tpu_torch.ops import decode as plain_decode
-    from qoaudio_tpu_torch.ops import encode as plain_encode
     from qoaudio_tpu_torch.parallel import corpus
     from qoaudio_tpu_torch.utils.timing import Stopwatch, bench_fn
 
-    QoaDesc = types.QoaDesc
     dev = torch.device("cuda")
     kernels = {
         "decode": {"name": "qoa_decode_chains", "route": "cuda",
@@ -144,12 +220,7 @@ def main() -> int:
                  "source": "qoaudio_tpu_torch/csrc/qoa_encode.cu",
                  "replaces": "qoaudio_tpu/ops/pallas_encode.py:324"},
     }
-    # (module, wrapper attribute, plain version) of each kernel
-    wrappers = {
-        "decode": (cuda_decode, "decode_chains_words", plain_decode.decode_chains_words),
-        "masked": (cuda_encode, "encode_frames", plain_encode.encode_frames),
-        "full": (cuda_encode, "encode_frames_full", plain_encode.encode_frames_full),
-    }
+    wrappers = kernel_wrappers()
     max_err = {k: 0.0 for k in kernels}
 
     def compare(key, *args, what: str):
@@ -162,18 +233,6 @@ def main() -> int:
         max_err[key] = max(max_err[key], err)
         require(err == 0, f"{key} kernel != plain on {what} (max err {err})")
         return got
-
-    @contextlib.contextmanager
-    def wrapped(make):
-        """Route every wrapper call through ``make(key, wrapper)``."""
-        saved = {k: getattr(mod, attr) for k, (mod, attr, _) in wrappers.items()}
-        for k, (mod, attr, _) in wrappers.items():
-            setattr(mod, attr, make(k, saved[k]))
-        try:
-            yield
-        finally:
-            for k, (mod, attr, _) in wrappers.items():
-                setattr(mod, attr, saved[k])
 
     # ---- phase 1: the card and the toolchain ----
     card = gpu_line()
@@ -242,26 +301,13 @@ def main() -> int:
         f"F={F} W={W} N={N}")
 
     # ---- phase 4: the main path at real size ----
-    fix_dec = codec.decode_all(fixture, backend="native")
-    files = bench_corpus(fix_dec.samples, fix_dec.num_channels, QoaDesc)
-    files.append((fix_dec.samples, QoaDesc(fix_dec.num_channels, fix_dec.sample_rate,
-                                           fix_dec.samples_per_channel)))
-    streams = [codec.encode_all(p, d, backend="native") for p, d in files[:-1]]
-    streams.append(fixture)
+    fix_dec, files, streams, want_dec, want_tc, want_enc = smoke_corpus(fixture)
     total = sum(d.samples * d.channels for _, d in files)
     dec_chains = sum(-(-d.samples // 5120) * d.channels for _, d in files)
     enc_chains = sum(d.channels for _, d in files)
     say(f"phase 4: corpus {len(streams)} files, {total} samples, "
         f"{dec_chains} decode chains, {enc_chains} encode chains, "
         f"{sum(len(s) for s in streams)} bytes compressed")
-
-    want_dec = [codec.decode_all(s, backend="native") for s in streams]
-    want_tc = [
-        codec.encode_all(o.samples, QoaDesc(o.num_channels, o.sample_rate,
-                                             o.samples_per_channel), backend="native")
-        for o in want_dec
-    ]
-    want_enc = [codec.encode_all(p, d, backend="native") for p, d in files]
 
     # the counted run; each kernel's first inputs are kept for the
     # comparison below
@@ -344,41 +390,26 @@ def main() -> int:
     # device time of each kernel inside one more run of each entry point,
     # by CUDA events around every launch; the rest of each call's wall
     # time is host work and copies
-    spent = {k: 0.0 for k in kernels}
-
-    def timed(key, fn):
-        def run(*args):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = fn(*args)
-            b.record()
-            b.synchronize()
-            spent[key] += a.elapsed_time(b)
-            return out
-        return run
-
     main_path_ms = {k: 0.0 for k in kernels}
-    with wrapped(timed):
-        for name, call in (("batch_transcode", lambda: corpus.batch_transcode(streams, dev)),
-                           ("batch_decode", lambda: corpus.batch_decode(streams, dev)),
-                           ("batch_encode", lambda: corpus.batch_encode(files, dev))):
-            spent.update({k: 0.0 for k in spent})
-            with Stopwatch(dev) as sw:
-                call()
-            wall_ms = sw.elapsed * 1e3
-            say(f"phase 4: {name} with kernel events: wall {wall_ms:.3f} ms; "
-                + ", ".join(f"{k} {v:.3f} ms" for k, v in spent.items())
-                + f"; outside the kernels {wall_ms - sum(spent.values()):.3f} ms {tag}")
-            for k, v in spent.items():
-                main_path_ms[k] += v
+    for name, call in (("batch_transcode", lambda: corpus.batch_transcode(streams, dev)),
+                       ("batch_decode", lambda: corpus.batch_decode(streams, dev)),
+                       ("batch_encode", lambda: corpus.batch_encode(files, dev))):
+        wall_ms, spent = kernel_ms(call, dev)
+        say(f"phase 4: {name} with kernel events: wall {wall_ms:.3f} ms; "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in spent.items())
+            + f"; outside the kernels {wall_ms - sum(spent.values()):.3f} ms {tag}")
+        for k, v in spent.items():
+            main_path_ms[k] += v
     for key, ms in main_path_ms.items():
         kernels[key]["main_path_ms"] = ms
 
     # ---- phase 5: the public entry points on the card ----
     entry_points = phase5(dev, tag, fixture, fix_dec, files, streams, want_tc, want_enc)
 
-    # ---- phase 6: results ----
+    # ---- phase 6: mesh, handle and length bucketing ----
+    phase6(dev, tag, fix_dec, files, streams, want_tc, want_dec, want_enc)
+
+    # ---- phase 7: results ----
     say(json.dumps({"entry_points": entry_points}))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "timed_shape", "main_path_ms")
@@ -398,8 +429,6 @@ def phase5(dev, tag, fixture, fix_dec, files, streams, want_tc, want_enc):
     from qoaudio_tpu_torch import (QoaDecoder, QoaDesc, QoaEncoder, cli,
                                    decode_all, decode_range, encode_all,
                                    encode_all_batch, open_and_decode_all)
-    from qoaudio_tpu_torch.ops import cuda_decode, cuda_encode
-    from qoaudio_tpu_torch.parallel import corpus
     from qoaudio_tpu_torch.utils.timing import Stopwatch
 
     T = dict(backend="torch", device=dev)
@@ -414,16 +443,6 @@ def phase5(dev, tag, fixture, fix_dec, files, streams, want_tc, want_enc):
         return (a.num_channels, a.sample_rate) == (b.num_channels, b.sample_rate) \
             and np.array_equal(a.samples, b.samples)
 
-    def counts():
-        return {"decode": cuda_decode.launches, "masked": cuda_encode.masked_launches,
-                "full": cuda_encode.full_launches, "host_pair_files": corpus.host_pair_files}
-
-    def reset_counts():
-        cuda_decode.launches = 0
-        cuda_encode.masked_launches = 0
-        cuda_encode.full_launches = 0
-        corpus.host_pair_files = 0
-
     def entry(name, torch_call, native_call, launches, same=lambda a, b: a == b):
         """Run both sides ENTRY_REPS times, alternating which goes first.
         Every torch call must make exactly ``launches`` (kernel -> count;
@@ -435,10 +454,10 @@ def phase5(dev, tag, fixture, fix_dec, files, streams, want_tc, want_enc):
         for rep in range(ENTRY_REPS):
             for side in ((0, 1) if rep % 2 == 0 else (1, 0)):
                 if side == 0:
-                    reset_counts()
+                    reset_launch_counts()
                     with Stopwatch(dev) as sw:
                         got = torch_call()
-                    seen = counts()
+                    seen = launch_counts()
                     require(seen == want_counts,
                             f"{name}: launches {seen}, expected {want_counts}")
                     t_ms.append(sw.elapsed * 1e3)
@@ -612,6 +631,314 @@ def phase5(dev, tag, fixture, fix_dec, files, streams, want_tc, want_enc):
     for key, k in total.items():
         require(k > 0, f"kernel {key} never launched by the entry points")
     return results
+
+
+def kernel_ms(call, dev):
+    """(wall ms, device ms of each kernel) of one ``call()`` on ``dev``,
+    the kernels timed by CUDA events around every launch."""
+    import torch
+
+    from qoaudio_tpu_torch.utils.timing import Stopwatch
+
+    spent = {"decode": 0.0, "masked": 0.0, "full": 0.0}
+
+    def timed(key, fn):
+        def run(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            b.synchronize()
+            spent[key] += a.elapsed_time(b)
+            return out
+        return run
+
+    with wrapped(timed), Stopwatch(dev) as sw:
+        call()
+    return sw.elapsed * 1e3, spent
+
+
+def launch_counts() -> dict:
+    """Kernel launches and host-pair files counted since the last reset."""
+    from qoaudio_tpu_torch.ops import cuda_decode, cuda_encode
+    from qoaudio_tpu_torch.parallel import corpus
+
+    return {"decode": cuda_decode.launches, "masked": cuda_encode.masked_launches,
+            "full": cuda_encode.full_launches, "host_pair_files": corpus.host_pair_files}
+
+
+def reset_launch_counts() -> None:
+    from qoaudio_tpu_torch.ops import cuda_decode, cuda_encode
+    from qoaudio_tpu_torch.parallel import corpus
+
+    cuda_decode.launches = 0
+    cuda_encode.masked_launches = 0
+    cuda_encode.full_launches = 0
+    corpus.host_pair_files = 0
+
+
+def transcode_launches(parsed_groups, chunk=64) -> dict:
+    """Exact launches of a transcode whose device groups hold these parsed
+    files: one decode each, then its chunked encode."""
+    want = {"decode": 0, "masked": 0, "full": 0, "host_pair_files": 0}
+    for g in parsed_groups:
+        if not g:
+            continue
+        F = max(p.n_frames for p in g)
+        f_full = min(int(p.samples_per_frame.sum()) for p in g) // 5120
+        full = sum(1 for f0 in range(0, F, chunk) if min(f0 + chunk, F) <= f_full)
+        want["decode"] += 1
+        want["full"] += full
+        want["masked"] += -(-F // chunk) - full
+    return want
+
+
+def median_time(call, where, reps=3):
+    """(median, all) seconds of ``reps`` calls, each synchronised on
+    ``where`` (a device or a mesh) before and after."""
+    from qoaudio_tpu_torch.utils.timing import Stopwatch
+
+    times = []
+    for _ in range(reps):
+        with Stopwatch(where) as sw:
+            call()
+        times.append(sw.elapsed)
+    return statistics.median(times), times
+
+
+def fmt_times(med, times) -> str:
+    return f"median {med:.4f} s ({', '.join(f'{t:.4f}' for t in times)})"
+
+
+def mesh_phase(dev, tag, files, streams, want_tc, want_dec, want_enc):
+    """``batch_transcode``, ``batch_decode`` and ``batch_encode`` on the
+    smoke corpus on ``dev``, over ``make_mesh()`` (every visible card) and
+    over ``cuda:0`` listed four times: each byte-equal to native, with
+    the launches of the files' longest-chain-first partition, and timed."""
+    from qoaudio_tpu_torch import bitstream
+    from qoaudio_tpu_torch.parallel import Mesh, corpus, make_mesh
+
+    def same_dec(got):
+        return all((g.num_channels, g.sample_rate) == (w.num_channels, w.sample_rate)
+                   and np.array_equal(g.samples, w.samples) for g, w in zip(got, want_dec))
+
+    parsed = [bitstream.parse_file_arrays(s) for s in streams]
+    F_max = max(-(-d.samples // 5120) for _, d in files)
+    f_full = min(d.samples for _, d in files) // 5120
+    full = sum(1 for f0 in range(0, F_max, 64) if min(f0 + 64, F_max) <= f_full)
+    enc_one = {"full": full, "masked": -(-F_max // 64) - full}
+    placements = [("unsharded", dict(device=dev)),
+                  ("make_mesh()", dict(mesh=make_mesh())),
+                  ("cuda:0 x4", dict(mesh=make_mesh(devices=("cuda:0",) * 4)))]
+    unsharded = {}
+    for label, where in placements:
+        m = where.get("mesh", Mesh((dev,)))
+        idx_groups = balanced_groups(parsed, m.size)
+        require(all(idx_groups) or len(parsed) < m.size,
+                f"{label}: a device holds no file: {idx_groups}")
+        require(corpus._file_groups(parsed, m.size) == idx_groups,
+                f"{label}: the corpus layer's groups differ from the longest-chain-first "
+                f"balance {[len(g) for g in idx_groups]}")
+        groups = [[parsed[i] for i in g] for g in idx_groups]
+        cases = (
+            ("batch_transcode", lambda: corpus.batch_transcode(streams, **where),
+             lambda got: got == want_tc, transcode_launches(groups)),
+            ("batch_decode", lambda: corpus.batch_decode(streams, **where), same_dec,
+             {"decode": m.size, "masked": 0, "full": 0, "host_pair_files": 0}),
+            ("batch_encode", lambda: corpus.batch_encode(files, **where),
+             lambda got: got == want_enc,
+             {"decode": 0, "host_pair_files": 0,
+              **{k: v * m.size for k, v in enc_one.items()}}),
+        )
+        for name, call, ok, want_counts in cases:
+            reset_launch_counts()
+            got = call()
+            seen = launch_counts()
+            require(seen == want_counts,
+                    f"{name} over {label}: launches {seen}, expected {want_counts}")
+            require(ok(got), f"{name} over {label} != native")
+            med, times = median_time(call, m)
+            if label == "unsharded":
+                unsharded[name] = med
+            say(f"phase 6: {name} over {label} ({m.size} shard(s) on "
+                f"{', '.join(sorted({str(d) for d in m.devices}))}; files per group "
+                f"{[len(g) for g in groups]}) == native, launches "
+                f"{ {k: v for k, v in seen.items() if k != 'host_pair_files'} }: "
+                f"{fmt_times(med, times)}; unsharded median {unsharded[name]:.4f} s {tag}")
+
+
+def mesh_cards() -> int:
+    """The mesh part of phase 6 alone, for a host with several cards:
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.mesh_cards())'
+
+    ``make_mesh()`` then spans every card, so this drives what exists only
+    across cards: per-card launches, fetches and waits over several
+    devices, and files split over cards.  Exits 2 with no CUDA device."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing run",
+              file=sys.stderr)
+        return 2
+    from qoaudio_tpu_torch.ops import _build
+
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    cards = r.stdout.strip().splitlines()
+    for line in cards:
+        say(line)
+    require(torch.cuda.device_count() == len(cards), "nvidia-smi and torch count differ")
+    _build.library()
+    with open(FIXTURE, "rb") as f:
+        _, files, streams, want_dec, want_tc, want_enc = smoke_corpus(f.read())
+    mesh_phase(torch.device("cuda:0"), f"[{len(cards)} x {cards[0]}]", files, streams,
+               want_tc, want_dec, want_enc)
+    say(f"mesh_cards: passed on {len(cards)} card(s)")
+    return 0
+
+
+def phase6(dev, tag, fix_dec, files, streams, want_tc, want_dec, want_enc):
+    """The corpus layer's mesh, handle and bucketing on ``dev``."""
+    import torch
+
+    from qoaudio_tpu_torch import bitstream, codec, types
+    from qoaudio_tpu_torch.ops import cuda_encode
+    from qoaudio_tpu_torch.parallel import Mesh, corpus
+    from qoaudio_tpu_torch.utils.timing import Stopwatch
+    from qoaudio_tpu_torch.utils.transfer import fetch_arrays
+
+    mesh_phase(dev, tag, files, streams, want_tc, want_dec, want_enc)
+    parsed = [bitstream.parse_file_arrays(s) for s in streams]
+
+    # -- the handle: the device side of the end-to-end path alone --
+    reset_launch_counts()
+    outs, handle = corpus.batch_transcode(streams, dev, return_fused_handle=True)
+    require(outs == want_tc, "batch_transcode(return_fused_handle=True) != native")
+    require(isinstance(handle, corpus.TranscodeFusedHandle), f"handle is {type(handle)}")
+    reset_launch_counts()
+    packed = handle()
+    require(handle.assemble(*fetch_arrays(packed)) == want_tc,
+            "the handle's re-run gives other bytes")
+    require(launch_counts() == transcode_launches([parsed]),
+            f"handle(): launches {launch_counts()}")
+    e2e, hdl = [], []
+    for rep in range(3):
+        for side in ((0, 1) if rep % 2 == 0 else (1, 0)):
+            with Stopwatch(dev) as sw:
+                if side == 0:
+                    corpus.batch_transcode(streams, dev)
+                else:
+                    handle()
+            (e2e if side == 0 else hdl).append(sw.elapsed)
+    e_med, h_med = statistics.median(e2e), statistics.median(hdl)
+    say(f"phase 6: batch_transcode e2e {fmt_times(e_med, e2e)}; handle() (device side) "
+        f"{fmt_times(h_med, hdl)}; e2e - handle = {(e_med - h_med) * 1e3:.3f} ms host share {tag}")
+    del handle, packed
+
+    # -- length bucketing past two resident waves --
+    blocks, sms, per_block = cuda_encode.occupancy(dev)
+    wave = cuda_encode.chains_per_wave(dev)
+    require(wave > 0, "no resident encode chains")
+    say(f"phase 6: encoder wave: {blocks} resident blocks per SM x {sms} SMs x "
+        f"{per_block} chains per block = {wave} chains {tag}")
+    e_mult, overhead = corpus._bucket_model(Mesh((dev,)))
+    require(corpus._length_buckets([p.n_frames for p in parsed],
+                                   [p.channels for p in parsed], e_mult, 64, overhead) is None,
+            "the smoke corpus buckets on the card")
+    reset_launch_counts()
+    corpus.batch_transcode(streams, dev)
+    require(launch_counts() == transcode_launches([parsed]),
+            f"the smoke corpus under bucket='auto': launches {launch_counts()}")
+    say(f"phase 6: smoke corpus under bucket='auto': one call, launches {launch_counts()}")
+
+    # what one more sub-call costs, in frames of one full wave
+    one = codec.encode_all(fix_dec.samples[: 2 * 4410], types.QoaDesc(2, 44100, 4410),
+                           backend="native")
+    sub_med, _ = median_time(lambda: corpus.batch_transcode([one], dev), dev, reps=5)
+    rng = np.random.default_rng(SEED + 6)
+    xw = torch.from_numpy(rng.integers(-20000, 20000, size=(1, 256, 20, wave)
+                                       ).astype(np.int16)).to(dev)
+    lw = torch.full((1, 256, wave), 20, dtype=torch.int32, device=dev)
+    sw0 = torch.from_numpy(codec.initial_encoder_state(0, wave)).to(dev)
+    frame_med, _ = median_time(lambda: cuda_encode.encode_frames(sw0, xw, lw), dev, reps=5)
+    del xw, lw, sw0
+    say(f"phase 6: one more sub-call (a one-file transcode) {sub_med * 1e3:.3f} ms; one frame "
+        f"of a full wave {frame_med * 1e3:.3f} ms; ratio {sub_med / frame_med:.2f} wave-frames "
+        f"(the model uses {corpus._CUDA_BUCKET_OVERHEAD_WAVES}) {tag}")
+
+    left = fix_dec.samples.reshape(-1, fix_dec.num_channels)
+    n_src = left.shape[0]
+    mix = []
+    for i in range(2 * wave):  # one-frame mono clips
+        idx = (i * 7919 + np.arange(MIX_CLIP_SAMPLES)) % n_src
+        mix.append((np.ascontiguousarray(left[idx, 0]),
+                    types.QoaDesc(1, 44100, MIX_CLIP_SAMPLES)))
+    for i in range(MIX_LONG_FILES):  # long stereo files
+        idx = (i * 104729 + np.arange(MIX_LONG_FRAMES * 5120)) % n_src
+        mix.append((np.ascontiguousarray(left[idx]).reshape(-1),
+                    types.QoaDesc(2, 44100, MIX_LONG_FRAMES * 5120)))
+    with Stopwatch() as sw:
+        mix_streams = [codec.encode_all(p, d, backend="native") for p, d in mix]
+        want_mix = []  # the native decode -> encode pair of each stream
+        for s in mix_streams:
+            o = codec.decode_all(s, backend="native")
+            want_mix.append(codec.encode_all(o.samples, types.QoaDesc(
+                o.num_channels, o.sample_rate, o.samples_per_channel), backend="native"))
+    mix_parsed = [bitstream.parse_file_arrays(s) for s in mix_streams]
+    chains = sum(p.channels for p in mix_parsed)
+    segs = corpus._length_buckets([p.n_frames for p in mix_parsed],
+                                  [p.channels for p in mix_parsed], e_mult, 64, overhead)
+    require(segs is not None and len(segs) > 1, "the multi-wave corpus does not bucket")
+    say(f"phase 6: mixed corpus {len(mix)} files ({2 * wave} one-frame mono clips, "
+        f"{MIX_LONG_FILES} {MIX_LONG_FRAMES}-frame stereo files), {chains} encode chains "
+        f"= {chains / wave:.3f} waves (built in {sw.elapsed:.1f} s); buckets chosen: "
+        + "; ".join(f"{len(g)} files, {sum(mix_parsed[i].channels for i in g)} chains, "
+                    f"{max(mix_parsed[i].n_frames for i in g)} frames max" for g in segs))
+    runs = {}
+    for label, bucket, want_counts in (
+            ("auto", "auto", transcode_launches([[mix_parsed[i] for i in g] for g in segs])),
+            ("False", False, transcode_launches([mix_parsed]))):
+        reset_launch_counts()
+        got = corpus.batch_transcode(mix_streams, dev, bucket=bucket)
+        torch.cuda.synchronize()
+        require(launch_counts() == want_counts,
+                f"bucket={label}: launches {launch_counts()}, expected {want_counts}")
+        bad = [i for i, (g, w) in enumerate(zip(got, want_mix)) if g != w]
+        require(not bad, f"bucket={label} != native for {len(bad)} files, first {bad[:5]}")
+        runs[label] = (bucket, launch_counts())
+    t = {"auto": [], "False": []}
+    for rep in range(3):
+        for label in (("auto", "False") if rep % 2 == 0 else ("False", "auto")):
+            with Stopwatch(dev) as sw:
+                corpus.batch_transcode(mix_streams, dev, bucket=runs[label][0])
+            t[label].append(sw.elapsed)
+    # the device side alone: each call's handle re-run (a composite one
+    # for "auto", which re-runs every bucket)
+    handles = {label: corpus.batch_transcode(mix_streams, dev, bucket=runs[label][0],
+                                             return_fused_handle=True)[1]
+               for label in ("auto", "False")}
+    d = {"auto": [], "False": []}
+    for rep in range(3):
+        for label in (("auto", "False") if rep % 2 == 0 else ("False", "auto")):
+            with Stopwatch(dev) as sw:
+                handles[label]()
+            d[label].append(sw.elapsed)
+    for label in ("auto", "False"):
+        launched = {k: v for k, v in runs[label][1].items() if k != "host_pair_files"}
+        say(f"phase 6: mixed corpus bucket={label} == native, launches {launched}: e2e "
+            f"{fmt_times(statistics.median(t[label]), t[label])}; handle (device side) "
+            f"{fmt_times(statistics.median(d[label]), d[label])} {tag}")
+    for label in ("auto", "False"):  # one more handle run, kernels timed by events
+        wall_ms, spent = kernel_ms(handles[label], dev)
+        say(f"phase 6: mixed corpus bucket={label} handle with kernel events: wall "
+            f"{wall_ms:.3f} ms; " + ", ".join(f"{k} {v:.3f} ms" for k, v in spent.items())
+            + f"; outside the kernels (relayout, lens, packing) "
+            f"{wall_ms - sum(spent.values()):.3f} ms {tag}")
+    del handles
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

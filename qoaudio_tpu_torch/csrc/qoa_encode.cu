@@ -314,3 +314,20 @@ extern "C" int qoa_encode_frames_full_cuda(const void* samples, const void* stat
   return launch<false>(samples, nullptr, state_in, n_frames, n_windows, n_chains,
                        state_out, snaps, words, stream);
 }
+
+// One resident wave of the encoder on the current device: the blocks of
+// either variant that fit on one SM at once (the smaller of the two), the
+// SM count, and the chains a block serves.  Launches nothing; returns
+// cudaGetLastError() after the queries (the first failing query's error).
+extern "C" int qoa_encode_occupancy(int* blocks_per_sm, int* n_sms, int* chains_per_block) {
+  int dev = 0, masked = 0, full = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&masked, qoa_encode_kernel<true>, kThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&full, qoa_encode_kernel<false>, kThreads, 0);
+  *blocks_per_sm = masked < full ? masked : full;
+  *chains_per_block = kThreads / kLanes;
+  return err != cudaSuccess ? static_cast<int>(err) : static_cast<int>(cudaGetLastError());
+}

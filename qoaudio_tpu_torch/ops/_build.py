@@ -112,6 +112,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qoa_encode_frames_cuda.restype = i
     lib.qoa_encode_frames_full_cuda.argtypes = [p, p, i, i, i, p, p, p, p]
     lib.qoa_encode_frames_full_cuda.restype = i
+    ip = ctypes.POINTER(i)
+    lib.qoa_encode_occupancy.argtypes = [ip, ip, ip]
+    lib.qoa_encode_occupancy.restype = i
     lib.qoa_cuda_error_string.argtypes = [i]
     lib.qoa_cuda_error_string.restype = ctypes.c_char_p
 

@@ -5,10 +5,12 @@ Replace ``qoaudio_tpu/ops/pallas_encode.py::encode_frames_pallas`` and
 tensors they run the plain versions (``ops/encode.py``); for CUDA tensors
 they launch the kernel on the current stream or raise.
 ``masked_launches`` and ``full_launches`` count kernel launches.
+:func:`chains_per_wave` reads how many chains one resident wave holds.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -18,6 +20,7 @@ from . import encode as _plain
 
 masked_launches = 0
 full_launches = 0
+_occupancy: dict = {}  # device -> (blocks per SM, SMs, chains per block)
 
 
 def _launch(state, samples, lens: Optional[torch.Tensor], device):
@@ -73,3 +76,31 @@ def encode_frames_full(state: torch.Tensor, samples: torch.Tensor):
     out = _launch(state, samples, None, device)
     full_launches += 1
     return out
+
+
+def occupancy(device) -> tuple:
+    """(resident encoder blocks per SM, SM count, chains per block) on the
+    CUDA ``device``, from the CUDA occupancy calculator: the smaller of the
+    masked and full variants, for their register and thread counts.
+    Launches nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"occupancy: {device} is not a CUDA device")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _occupancy:
+        lib = _build.library()
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        with torch.cuda.device(device):
+            rc = lib.qoa_encode_occupancy(*(ctypes.byref(v) for v in vals))
+        _build.check(rc, "qoa_encode_occupancy")
+        _occupancy[device] = tuple(v.value for v in vals)
+    return _occupancy[device]
+
+
+def chains_per_wave(device) -> int:
+    """Encode chains that run at once on the CUDA ``device``: resident
+    blocks per SM x SMs x chains per block.  Past one wave, chains wait for
+    a block to finish."""
+    blocks, sms, chains = occupancy(device)
+    return blocks * sms * chains

@@ -17,34 +17,54 @@ def _is_cuda(device) -> bool:
     return device is not None and torch.device(device).type == "cuda"
 
 
+def _cuda_devices(where) -> list:
+    """The distinct CUDA devices of ``where``: None, one device, or a mesh
+    (anything with ``.devices``)."""
+    if where is None:
+        return []
+    devs = getattr(where, "devices", (where,))
+    out = []
+    for d in devs:
+        d = torch.device(d)
+        if d.type == "cuda" and d not in out:
+            out.append(d)
+    return out
+
+
 class Stopwatch:
     """Wall-clock timer with samples/sec reporting.
 
-    With a CUDA ``device`` the clock starts and stops after a
-    ``torch.cuda.synchronize()``, so ``elapsed`` covers the device work,
-    and ``device_ms`` holds the CUDA-event time between the same points.
+    ``device`` is one device or a mesh.  The clock starts and stops after
+    a ``torch.cuda.synchronize`` of every CUDA device among them, so
+    ``elapsed`` covers their work; with exactly one CUDA device
+    ``device_ms`` holds the CUDA-event time between the same points.
     """
 
     def __init__(self, device=None):
         self.device = device
         self.elapsed = 0.0
         self.device_ms: Optional[float] = None
+        self._cuda = _cuda_devices(device)
         self._t0 = None
         self._ev = None
 
     def __enter__(self):
-        if _is_cuda(self.device):
-            torch.cuda.synchronize(self.device)
+        for d in self._cuda:
+            torch.cuda.synchronize(d)
+        if len(self._cuda) == 1:
+            stream = torch.cuda.current_stream(self._cuda[0])
             self._ev = (torch.cuda.Event(enable_timing=True),
                         torch.cuda.Event(enable_timing=True))
-            self._ev[0].record()
+            self._ev[0].record(stream)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         if self._ev is not None:
-            self._ev[1].record()
-            torch.cuda.synchronize(self.device)
+            self._ev[1].record(torch.cuda.current_stream(self._cuda[0]))
+        for d in self._cuda:
+            torch.cuda.synchronize(d)
+        if self._ev is not None:
             self.device_ms = self._ev[0].elapsed_time(self._ev[1])
         self.elapsed = time.perf_counter() - self._t0
         return False

@@ -216,3 +216,54 @@ def test_streaming_encoder_on_card(cuda):
     for off in range(0, n, 5120):
         enc.encode_frame(pcm[2 * off : 2 * min(n, off + 5120)], out)
     assert out.getvalue() == want
+
+
+def test_mesh_transcode_on_one_card(cuda):
+    """A mesh that lists the card twice: two device groups, each its own
+    decode and encode launches, bytes equal to the single-device run."""
+    from qoaudio_tpu_torch.parallel import make_mesh
+
+    assert cuda_encode.chains_per_wave(cuda) > 0
+    rng = np.random.default_rng(12)
+    streams = []
+    for i, (n, ch) in enumerate(((5120 * 3 + 17, 2), (900, 1), (5120 + 5, 1), (4000, 2))):
+        pcm = rng.integers(-20000, 20000, size=n * ch).astype(np.int16)
+        streams.append(codec.encode_all(pcm, types.QoaDesc(ch, 44100, n), backend="native"))
+    want = corpus.batch_transcode(streams, cuda)
+    before = cuda_decode.launches
+    got = corpus.batch_transcode(streams, mesh=make_mesh(devices=("cuda:0",) * 2))
+    assert cuda_decode.launches == before + 2
+    assert got == want
+
+
+def test_mesh_over_every_card(cuda):
+    """make_mesh() over two or more distinct cards: every card gets files,
+    each card its own decode launch, and the three corpus calls equal the
+    single-device run; a fetch waits on every card it reads from."""
+    from qoaudio_tpu_torch.parallel import make_mesh
+    from qoaudio_tpu_torch.utils.transfer import fetch_arrays
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = make_mesh()
+    assert mesh.size == torch.cuda.device_count() == len(set(mesh.devices))
+    rng = np.random.default_rng(13)
+    files, streams = [], []
+    for i in range(2 * mesh.size + 1):
+        n, ch = (5120 * 2 + 31 * i, 900 + 7 * i, 5120 + 5)[i % 3], 1 + i % 2
+        pcm = rng.integers(-20000, 20000, size=n * ch).astype(np.int16)
+        files.append((pcm, types.QoaDesc(ch, 44100, n)))
+        streams.append(codec.encode_all(pcm, files[-1][1], backend="native"))
+    one = torch.device("cuda:0")
+    before = cuda_decode.launches
+    got = corpus.batch_transcode(streams, mesh=mesh)
+    assert cuda_decode.launches == before + mesh.size
+    assert got == corpus.batch_transcode(streams, one)
+    dec = corpus.batch_decode(streams, mesh=mesh)
+    for g, w in zip(dec, corpus.batch_decode(streams, one)):
+        assert np.array_equal(g.samples, w.samples)
+    assert corpus.batch_encode(files, mesh=mesh) == corpus.batch_encode(files, one)
+    parts = [torch.full((1 << 20,), k, dtype=torch.int32, device=d)
+             for k, d in enumerate(mesh.devices)]
+    for k, a in enumerate(fetch_arrays(parts)):
+        assert (a == k).all()

@@ -1,8 +1,8 @@
 """Rules the PyTorch port keeps, checked on the CPU.
 
 * no module of ``qoaudio_tpu_torch`` imports jax, and with jax blocked and
-  no native engine its codec runs on the given device or raises
-  ValueError; its ``codec`` is its own module;
+  no native engine its codec, and its corpus layer's host pair, run on the
+  given device or raise ValueError; its ``codec`` is its own module;
 * the ``__constant__`` tables of the CUDA sources are the format's tables;
 * the word/state layout conversions round-trip;
 * without nvcc the kernel build raises, and a wrapper given a tensor that
@@ -36,14 +36,17 @@ def test_no_module_imports_jax():
         "for n in names: importlib.import_module(n)\n"
         "bad = [k for k, v in sys.modules.items() if v is not None and (k == 'jax' or k.startswith('jax.'))]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=120,
     )
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 10  # every module was imported
+    names = set(r.stdout.split())
+    assert len(names) >= 10  # every module was imported
+    assert {"qoaudio_tpu_torch.parallel.mesh", "qoaudio_tpu_torch.parallel.corpus",
+            "qoaudio_tpu_torch.utils.timing"} <= names
 
 
 def _constant_tables():
@@ -226,6 +229,67 @@ def test_codec_without_jax_or_native_engine(tmp_path):
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_corpus_host_pair_without_jax_or_native_engine(tmp_path):
+    """With jax blocked and no native engine, streams the device path does
+    not take (a streaming-mode stream the parser rejects, and 2,560-sample
+    frames) go through the port's own codec on the call's device: no
+    ImportError, and every output equals the numpy backend's."""
+    import io
+
+    from qoaudio_tpu import codec as jax_codec
+    from qoaudio_tpu.streaming import QoaEncoder
+    from qoaudio_tpu.types import QoaDesc
+
+    rng = np.random.default_rng(11)
+    pcm = rng.integers(-9000, 9000, 2 * 700).astype(np.int16)
+    plain = jax_codec.encode_all(pcm, QoaDesc(2, 44100, 700), backend="numpy")
+    mono = rng.integers(-9000, 9000, 2560 * 2).astype(np.int16)
+    enc = QoaEncoder(QoaDesc(1, 22050, 2560 * 2), backend="numpy")
+    buf = io.BytesIO()
+    enc.write_header(buf)
+    for off in range(0, 2560 * 2, 2560):
+        enc.encode_frame(mono[off : off + 2560], buf)
+    streams = [fmt.pack_file_header(0) + plain[8:], buf.getvalue(), plain]
+    paths = []
+    for i, data in enumerate(streams):
+        paths.append(str(tmp_path / f"s{i}.qoa"))
+        with open(paths[-1], "wb") as f:
+            f.write(data)
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "from qoaudio_tpu import codec as host, native\n"
+        "native.available = lambda: False\n"
+        "from qoaudio_tpu.types import QoaDesc\n"
+        "from qoaudio_tpu_torch.parallel import corpus\n"
+        f"paths = {paths!r}\n"
+        "streams = [open(p, 'rb').read() for p in paths]\n"
+        "dec = [host.decode_all(s, backend='numpy') for s in streams]\n"
+        "want = [host.encode_all(d.samples, QoaDesc(d.num_channels, d.sample_rate,\n"
+        "        d.samples_per_channel), backend='numpy') for d in dec]\n"
+        "got = corpus.batch_decode(streams, 'cpu')\n"
+        "assert corpus.host_pair_files == 1\n"
+        "for g, w in zip(got, dec):\n"
+        "    assert (g.num_channels, g.sample_rate) == (w.num_channels, w.sample_rate)\n"
+        "    assert np.array_equal(g.samples, w.samples)\n"
+        "assert corpus.batch_transcode(streams, 'cpu') == want\n"
+        "assert corpus.host_pair_files == 3\n"
+        f"rep = corpus.transcode_corpus(paths, 'cpu', out_dir={str(tmp_path / 'out')!r})\n"
+        "assert rep.ok and all(r['exact'] for r in rep.results)\n"
+        "for p, w in zip(paths, want):\n"
+        f"    assert open(p.replace({str(tmp_path)!r}, {str(tmp_path / 'out')!r}), 'rb').read() == w\n"
+        "assert not [k for k, v in sys.modules.items() if v is not None and k.startswith('jax')]\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=300,
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
