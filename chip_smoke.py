@@ -7,7 +7,10 @@ Phases, in order, each printing its result on its own line; any failure
 raises and exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
-2. build the CUDA kernels from ``qoaudio_tpu_torch/csrc`` and time it;
+2. build the CUDA kernels from ``qoaudio_tpu_torch/csrc`` (one nvcc per
+   source, started together) and time it; each kernel's registers and
+   spills (``ptxas -v``) and its hottest loop's operations per window
+   (``cuobjdump -sass``), from which every kernel's bound is computed;
 3. every kernel against its plain PyTorch version on CUDA tensors, exactly:
    the decoder on adversarial wrap-regime chains and on the fixture's
    chains, the masked and the full encoder on random windows;
@@ -42,11 +45,18 @@ raises and exits non-zero:
    clips and 64-frame stereo files): the wave size, the buckets chosen,
    ``bucket="auto"`` against ``bucket=False``, both byte-equal to native,
    and the smoke corpus held to one launch under ``"auto"``;
-7. one JSON line of entry points, one of kernels, then
-   ``{"ok": true, "device": ...}`` last.
+7. the decode kernel's store-shape probe
+   (``qoaudio_tpu_torch.experiments.decode_variants``: five store modes x
+   three block sizes on the fixture's chains tiled to W=256 x N=32,768),
+   every mode checked against the production decode and timed, with its
+   bound, then every mode against its plain version on the same inputs;
+8. one JSON line of entry points, one of kernels (each with its launches
+   on its path, error against its plain version, time, plain time and
+   bound), then ``{"ok": true, "device": ...}`` last.
 
-Without a CUDA device it exits 2 and prints no result.  It never imports
-jax: the port and the host tier it re-exports do not need it.
+Without a CUDA device it exits 2 and prints no result.  It imports nothing
+of jax and nothing of the JAX package ``qoaudio_tpu``: the port carries its
+own host tier.
 """
 
 from __future__ import annotations
@@ -56,12 +66,16 @@ import hashlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 
-sys.modules["jax"] = None  # the port must run without jax; importing it fails
+# the port must run without jax and without the JAX package: importing
+# either fails
+sys.modules["jax"] = None
+sys.modules["qoaudio_tpu"] = None
 
 import numpy as np  # noqa: E402
 
@@ -128,6 +142,97 @@ def bench_corpus(pcm: np.ndarray, channels: int, QoaDesc):
         files.append((np.ascontiguousarray(blk).reshape(-1), QoaDesc(ch, rate, spc)))
         pos = (pos + spc + 9973) % n_src
     return files
+
+
+def kernel_bound(key, args, ops_per_window, card) -> dict:
+    """The bound of one call of kernel ``key`` on ``args`` (its CUDA
+    inputs): bytes each input read once and each output written once, and
+    operations from the SASS loop counts (the encoders: the full-window
+    loop's per window, 16 candidate lanes per chain, over the windows with
+    samples), with the card's rates (``utils/roofline.py``)."""
+    from qoaudio_tpu_torch.utils import roofline
+
+    if key == "decode":
+        state, words = args
+        W, N = words.shape
+        n_bytes = 32 * N + 8 * W * N + 40 * W * N
+        n_ops = ops_per_window[("v0", 64)] * W * N
+    else:
+        F, W, _, N = args[1].shape
+        # state in and out, samples, snapshots, words (and the masked lens)
+        n_bytes = 64 * N + 40 * F * W * N + 32 * F * N + 8 * F * W * N
+        windows = F * W * N
+        if key == "masked":
+            n_bytes += 4 * F * W * N
+            windows = int((args[2] > 0).sum())
+        n_ops = ops_per_window["full"] * 16 * windows
+    ms, by = roofline.bound_ms(n_bytes, n_ops, card)
+    return {"bound_ms": ms, "bound_by": by, "bound_bytes": n_bytes, "bound_ops": n_ops}
+
+
+def variant_bound(mode, threads, W, N, ops_per_window, card) -> dict:
+    """The bound of one probe launch in store mode ``mode`` at W x N with
+    ``threads`` per block: the words (and, with the LMS, the state) in; the
+    mode's output out (only out[0, 0, :] for nostore); operations from that
+    instantiation's loop."""
+    from qoaudio_tpu_torch.utils import roofline
+
+    n_bytes = 8 * W * N + (0 if mode == "storeonly" else 32 * N)
+    n_bytes += 2 * N if mode == "nostore" else 40 * W * N
+    ms, by = roofline.bound_ms(n_bytes, ops_per_window[(mode, threads)] * W * N, card)
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def ptxas_registers(report: str) -> dict:
+    """kernel (short name) -> (registers, spill bytes) from ``ptxas -v``."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = short_kernel_name(m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), spill)
+    return out
+
+
+def short_kernel_name(mangled: str) -> str:
+    from qoaudio_tpu_torch.ops.decode import VARIANT_MODES
+
+    m = re.search(r"qoa_decode_kernelILi(\d)ELi(\d+)E", mangled)
+    if m:
+        return f"decode<{VARIANT_MODES[int(m.group(1))]},{m.group(2)}>"
+    m = re.search(r"qoa_encode_kernelILb(\d)E", mangled)
+    if m:
+        return "encode<masked>" if m.group(1) == "1" else "encode<full>"
+    return mangled
+
+
+def sass_ops(lib_path: str, nvcc: str) -> dict:
+    """Operations per window of each kernel's hottest loop: the decode's
+    (store mode, block size) instantiations, the encoders' "full" and
+    "masked"."""
+    from qoaudio_tpu_torch.ops.cuda_decode import VARIANT_THREADS
+    from qoaudio_tpu_torch.ops.decode import VARIANT_MODES
+    from qoaudio_tpu_torch.utils import roofline
+
+    cuobjdump = roofline.find_cuobjdump(nvcc)
+    require(cuobjdump is not None, "cuobjdump not found beside nvcc or on PATH")
+    funcs = roofline.sass_functions(lib_path, cuobjdump)
+
+    def loop(pattern, load, per_window):
+        names = [k for k in funcs if pattern in k]
+        require(len(names) == 1, f"{pattern}: SASS functions {names}")
+        return roofline.sass_loop(funcs[names[0]], load, per_window)
+
+    counts = {(mode, t): loop(f"qoa_decode_kernelILi{i}ELi{t}E", r"LDG\.E\.64", 1)
+              for i, mode in enumerate(VARIANT_MODES) for t in VARIANT_THREADS}
+    counts["full"] = loop("qoa_encode_kernelILb0E", r"LDG\.E\.U16", 20)
+    counts["masked"] = loop("qoa_encode_kernelILb1E", r"LDG\.E\.U16", 20)
+    return counts
 
 
 def kernel_wrappers() -> dict:
@@ -205,7 +310,9 @@ def main() -> int:
 
     from qoaudio_tpu_torch import bitstream, native
     from qoaudio_tpu_torch.ops import _build, cuda_decode, cuda_encode
+    from qoaudio_tpu_torch.ops.decode import VARIANT_MODES
     from qoaudio_tpu_torch.parallel import corpus
+    from qoaudio_tpu_torch.utils import roofline
     from qoaudio_tpu_torch.utils.timing import Stopwatch, bench_fn
 
     dev = torch.device("cuda")
@@ -220,6 +327,8 @@ def main() -> int:
                  "source": "qoaudio_tpu_torch/csrc/qoa_encode.cu",
                  "replaces": "qoaudio_tpu/ops/pallas_encode.py:324"},
     }
+    for k in kernels.values():
+        k["library_ms"] = None  # no one PyTorch call computes QOA decode or encode
     wrappers = kernel_wrappers()
     max_err = {k: 0.0 for k in kernels}
 
@@ -253,6 +362,21 @@ def main() -> int:
         _build.library()
     nvcc_s = _build.build_seconds if _build.build_seconds is not None else 0.0
     say(f"phase 2: kernels built and loaded in {sw.elapsed:.3f} s (nvcc {nvcc_s:.3f} s)")
+    if _build.ptxas_report is not None:
+        regs = ptxas_registers(_build.ptxas_report)
+        want = len(VARIANT_MODES) * len(cuda_decode.VARIANT_THREADS) + 2  # + 2 encoders
+        require(len(regs) == want, f"ptxas reported {sorted(regs)}")
+        say("phase 2: ptxas registers (spill bytes): " + ", ".join(
+            f"{k} {r} ({sp})" for k, (r, sp) in sorted(regs.items())))
+    ops = sass_ops(_build.build(), nvcc)
+    card_peaks = roofline.card(dev)
+    say("phase 2: SASS hottest loop, operations per window (instructions): " + ", ".join(
+        f"{k if isinstance(k, str) else '%s/%d' % k} {c['ops_per_window']:.0f} "
+        f"({c['instructions_per_window']:.0f})"
+        for k, c in ops.items()) + f"; int32 rate {card_peaks.int32_ops_per_s:.4e}/s "
+        f"({card_peaks.sms} SMs x {roofline.INT32_OPS_PER_SM_PER_CLOCK} x "
+        f"{card_peaks.clock_mhz:.0f} MHz), memory {roofline.HBM_BYTES_PER_S:.3e} B/s")
+    ops_per_window = {k: c["ops_per_window"] for k, c in ops.items()}
 
     # ---- phase 3: each kernel against its plain version ----
     rng = np.random.default_rng(SEED)
@@ -370,9 +494,17 @@ def main() -> int:
         k_s = bench_fn(getattr(mod, attr), *args, device=dev, warmup=2, iters=10)[0]
         p_s = bench_fn(plain, *args, device=dev, warmup=0, iters=1)[0]
         shape = "x".join(str(n) for n in args[1].shape)
-        kernels[key].update(ms=k_s * 1e3, plain_ms=p_s * 1e3, timed_shape=shape)
+        kernels[key].update(ms=k_s * 1e3, plain_ms=p_s * 1e3, timed_shape=shape,
+                            **kernel_bound(key, args, ops_per_window, card_peaks))
+        k = kernels[key]
+        step = ""
+        if key == "decode":  # the serial chain: W x 20 dependent steps
+            k["ns_per_step"] = k_s * 1e9 / (args[1].shape[0] * 20)
+            step = f", {k['ns_per_step']:.2f} ns per dependent step"
         say(f"phase 4: {key} kernel == plain on main-path inputs {shape}: "
-            f"kernel {k_s * 1e3:.4f} ms, plain {p_s * 1e3:.2f} ms {tag}")
+            f"kernel {k_s * 1e3:.4f} ms, plain {p_s * 1e3:.2f} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k['bound_bytes']} B, "
+            f"{k['bound_ops']:.4e} ops){step} {tag}")
     for key in kernels:
         kernels[key]["max_abs_err"] = max_err[key]
 
@@ -409,27 +541,94 @@ def main() -> int:
     # ---- phase 6: mesh, handle and length bucketing ----
     phase6(dev, tag, fix_dec, files, streams, want_tc, want_dec, want_enc)
 
-    # ---- phase 7: results ----
+    # ---- phase 7: the decode kernel's store-shape probe ----
+    kernels["variants"] = phase7(dev, tag, ops_per_window, card_peaks)
+
+    # ---- phase 8: results ----
     say(json.dumps({"entry_points": entry_points}))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "timed_shape", "main_path_ms")
-    say(json.dumps({"kernels": [{k: v[k] for k in order} for v in kernels.values()]}))
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape",
+             "main_path_ms", "ns_per_step", "modes")
+    say(json.dumps({"kernels": [{k: v[k] for k in order if k in v}
+                                for v in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
 
+def phase7(dev, tag, ops_per_window, card) -> dict:
+    """The store-shape probe on ``dev``: the experiment's own run (each
+    mode checked against the production decode, then timed) with the
+    variant launches counted from 0 around it, each mode's bound, then
+    every mode against its plain version on the same inputs (those
+    launches are not counted).  Returns the probe's kernel entry."""
+    import torch
+
+    from qoaudio_tpu_torch.experiments import decode_variants
+    from qoaudio_tpu_torch.ops import cuda_decode
+    from qoaudio_tpu_torch.ops import decode as plain
+    from qoaudio_tpu_torch.utils.timing import bench_fn
+
+    cuda_decode.variant_launches = 0
+    res = decode_variants.run(dev)
+    torch.cuda.synchronize()
+    launches = cuda_decode.variant_launches
+    W, N = res["windows"], res["chains"]
+    modes = plain.VARIANT_MODES
+    want = len(decode_variants.BLOCK_SIZES) * len(modes) * (
+        1 + decode_variants.WARMUP + decode_variants.ITERS)
+    require(launches == want, f"probe launches {launches}, expected {want}")
+    say(f"phase 7: probe {W} windows x {N} chains ({res['samples']} samples per launch), "
+        f"every mode == the production decode at every block size; variant launches {launches}")
+    for r in res["results"]:
+        r.update(variant_bound(r["mode"], r["threads"], W, N, ops_per_window, card))
+        say(f"phase 7: threads={r['threads']:3d} {r['mode']:9s} best {r['best_ms']:.4f} ms "
+            f"({r['gsps_best']:.2f} Gsamples/s), median {r['median_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) {tag}")
+
+    state, words_be = decode_variants.tiled_chains(windows=W, chains=N)
+    st = torch.from_numpy(state).to(dev)
+    wb = torch.from_numpy(words_be).to(dev)
+    err, plain_ms = 0.0, {}
+    for mode in modes:  # kernel (production block) against plain, exactly
+        got = cuda_decode.decode_chains_variant(st, wb, mode)
+        p_s, want_out = bench_fn(plain.decode_chains_variant, st, wb, mode, device=dev,
+                                 warmup=0, iters=1)
+        plain_ms[mode] = p_s * 1e3
+        if mode == "nostore":
+            got, want_out = got[0, 0], want_out[0, 0]
+        e = max_abs_err([got], [want_out])
+        require(e == 0, f"probe {mode} kernel != plain (max err {e})")
+        err = max(err, e)
+        del got, want_out
+    say(f"phase 7: every mode's kernel == its plain version on the probe's inputs (nostore "
+        f"on out[0, 0, :]); plain " + ", ".join(f"{m} {t:.2f} ms" for m, t in plain_ms.items())
+        + f" {tag}")
+    v0 = next(r for r in res["results"] if r["mode"] == "v0" and r["threads"] == 64)
+    torch.cuda.empty_cache()
+    return {"name": "qoa_decode_variant", "route": "cuda",
+            "source": "qoaudio_tpu_torch/csrc/qoa_decode.cu",
+            "replaces": "experiments/pallas_decode_variants.py:132",
+            "launches": launches, "max_abs_err": err, "ms": v0["best_ms"],
+            "plain_ms": plain_ms["v0"], "bound_ms": v0["bound_ms"],
+            "bound_by": v0["bound_by"], "library_ms": None, "timed_shape": f"{W}x{N}",
+            "ns_per_step": v0["best_ms"] * 1e6 / (W * 20),
+            "modes": [{k: r[k] for k in ("mode", "threads", "best_ms", "median_ms",
+                                         "gsps_best", "bound_ms", "bound_by")}
+                      | ({"plain_ms": plain_ms[r["mode"]]} if r["threads"] == 64 else {})
+                      for r in res["results"]]}
+
+
 def phase5(dev, tag, fixture, fix_dec, files, streams, want_tc, want_enc):
     """Every public entry point on ``dev``, each output held against the
     native engine's for the same call; returns the entry-point times."""
-    from qoaudio_tpu.format import QOA_SLICES_PER_FRAME, qoa_frame_size
-    from qoaudio_tpu.utils.wav import read_wav
-
     from qoaudio_tpu_torch import (QoaDecoder, QoaDesc, QoaEncoder, cli,
                                    decode_all, decode_range, encode_all,
                                    encode_all_batch, open_and_decode_all)
+    from qoaudio_tpu_torch.format import QOA_SLICES_PER_FRAME, qoa_frame_size
     from qoaudio_tpu_torch.utils.timing import Stopwatch
+    from qoaudio_tpu_torch.utils.wav import read_wav
 
     T = dict(backend="torch", device=dev)
     N = dict(backend="native")

@@ -10,14 +10,15 @@ the JAX package's, with a ``"torch"`` backend where that package has
 plain PyTorch versions of the kernels, a CUDA device runs the kernels
 themselves, and nothing falls back from one to the other.
 
-The host tier (format, bitstream, types, errors, native engine) imports no
-jax, so the port re-exports it from ``qoaudio_tpu`` instead of copying it.
-This package never imports jax.
+The host tier (format, bitstream, types, errors, the native engine, the
+scalar oracle, WAV I/O) is the port's own copy of the JAX package's
+(``tests/test_torch_host.py`` holds each copy against its original).  This
+package imports nothing of jax and nothing of ``qoaudio_tpu``.
 """
 
-from qoaudio_tpu import bitstream, native, types  # noqa: F401
-from qoaudio_tpu import format  # noqa: F401,A004
-from qoaudio_tpu.errors import (  # noqa: F401
+from . import bitstream, native, types  # noqa: F401
+from . import format  # noqa: F401,A004
+from .errors import (  # noqa: F401
     DecodeError,
     EncodeError,
     IncompatibleFrame,
@@ -30,7 +31,7 @@ from qoaudio_tpu.errors import (  # noqa: F401
     NotQoaFile,
     QoaError,
 )
-from qoaudio_tpu.types import (  # noqa: F401
+from .types import (  # noqa: F401
     DecodedQoa,
     FixedSamples,
     FrameHeader,

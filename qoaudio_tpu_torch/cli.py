@@ -24,14 +24,15 @@ import time
 import numpy as np
 import torch
 
-from qoaudio_tpu.cli import _cmd_info, _play_audio_sink
-from qoaudio_tpu.types import QoaDesc
-from qoaudio_tpu.utils.wav import read_wav, write_wav
-
+from . import bitstream as bs
 from . import codec
+from . import format as fmt
+from .errors import QoaError
 from .parallel import corpus
 from .source import QoaPcmSource
 from .streaming import QoaDecoder
+from .types import QoaDesc
+from .utils.wav import read_wav, write_wav
 
 
 class CliError(Exception):
@@ -136,6 +137,54 @@ def _cmd_decode(args) -> int:
     return 0
 
 
+def _play_audio_sink(src, block, bf, pending) -> int:
+    """Stream decoded PCM to a real audio device via sounddevice.
+
+    ``qoaudio_tpu/cli.py``'s sink, the analog of the reference's rodio sink
+    (examples/play.rs:11-25, src/lib.rs:914-989): blocks stream to the
+    device as frames decode, so playback starts before the file finishes
+    decoding.  ``bf`` is ``block``'s (channels, rate); ``pending`` is an
+    already-read (block, format) of the NEXT segment, or None.
+    """
+    import sounddevice as sd  # availability probed by the caller
+
+    while len(block):
+        # one OutputStream per format segment: a read never spans a
+        # format change, and each block carries its own format (the
+        # source's channels/sample_rate can already describe the NEXT
+        # staged frame when a read stopped at the boundary)
+        ch, rate = bf
+        with sd.OutputStream(
+            samplerate=rate, channels=ch, dtype="int16"
+        ) as stream:
+            while len(block):
+                # a ``pending`` block was read with the PREVIOUS segment's
+                # value limit and can stop mid-frame at a non-multiple of
+                # THIS segment's channel count: write only whole samples
+                # and carry the tail into the next read.  The carry always
+                # resolves within the segment (segments hold whole frames,
+                # so each segment's total length is a multiple of its
+                # channel count), leaving it empty at every format change.
+                whole = len(block) - len(block) % ch
+                if whole:
+                    stream.write(
+                        np.ascontiguousarray(block[:whole].reshape(-1, ch))
+                    )
+                carry = block[whole:]
+                if pending is not None:
+                    (block, bf), pending = pending, None
+                else:
+                    block = src.read(8192 * ch)
+                    bf = (src.block_channels, src.block_sample_rate)
+                if carry.size:
+                    if not len(block):
+                        break  # defensive: a mid-sample EOF drops the tail
+                    block = np.concatenate([carry, block])
+                if bf != (ch, rate):
+                    break  # reopen the device for the new format
+    return 0
+
+
 def _cmd_play(args) -> int:
     """Stream samples to an audio sink (``qoaudio_tpu.cli``'s ``play``,
     decoding through the port's ``QoaDecoder``).
@@ -220,6 +269,63 @@ def _cmd_play(args) -> int:
         + (f", {dur:.1f} s" if dur else "")
         + f") -> {out}"
     )
+    return 0
+
+
+def _cmd_info(args) -> int:
+    """Print stream metadata without decoding any samples
+    (``qoaudio_tpu/cli.py``'s ``info``).
+
+    A pure header walk: reads each 8-byte frame header and skips the
+    spc-derived body (the reference reader's stride, src/lib.rs:291-330)
+    — no slice-word staging, O(frames) work and O(1) memory.  Damaged
+    files report everything parsed up to the corruption instead of a
+    traceback (that is exactly when one runs ``info``).
+    """
+    with open(args.input, "rb") as f:
+        data = f.read()
+    total = fmt.unpack_file_header(data)
+    mode = "streaming" if total == 0 else "fixed"
+    frames = 0
+    channels = rates = None
+    samples = 0
+    damage = None
+    off = fmt.QOA_HEADER_SIZE
+    n = len(data)
+    while off + 8 <= n:
+        word = int.from_bytes(data[off : off + 8], "big")
+        ch, rate, spc, fsize = fmt.unpack_frame_header(word)
+        try:
+            bs._validate_frame_header(ch, rate, fsize)
+        except QoaError as e:
+            damage = f"invalid frame header at byte {off} ({e.__class__.__name__})"
+            break
+        nw = -(-spc // fmt.QOA_SLICE_LEN)
+        body = fmt.QOA_LMS_STATE_BYTES * ch + 8 * nw * ch
+        if off + 8 + body > n:
+            damage = f"truncated frame at byte {off}"
+            break
+        frames += 1
+        channels, rates = ch, rate
+        samples += spc
+        off += 8 + body
+    if 0 < n - off < 8 and damage is None:
+        damage = f"trailing {n - off} bytes after the last frame"
+    print(f"{args.input}: {mode} mode, {frames} frames")
+    if frames == 0 or not rates or not samples:
+        # degenerate but parseable (e.g. header-only stream): counts only
+        print(f"  {len(data)} bytes, no frames")
+        return 0
+    print(f"  channels {channels}, sample rate {rates} Hz")
+    print(
+        f"  {samples} samples/ch ({samples / rates:.2f} s), "
+        f"{len(data)} bytes, "
+        f"{len(data) * 8 / (samples * (channels or 1)):.2f} bits/sample"
+    )
+    if total and total != samples:
+        print(f"  note: header declares {total} samples/ch")
+    if damage:
+        print(f"  note: {damage}")
     return 0
 
 

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 The first call of a kernel wrapper compiles every ``csrc/*.cu`` with
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface,
-written to ``build/qoaudio_tpu_torch/`` beside the package and named by a
-hash of the sources and flags (so an edited source never loads a stale
-library), then loads it with ``ctypes``.  Pointers and the stream pass as
-``c_void_p``; each C entry point returns ``cudaGetLastError()`` and the
-wrapper raises if it is not 0.
+``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started together,
+then one link) into one shared library with a plain C interface, written
+to ``build/qoaudio_tpu_torch/`` beside the package and named by a hash of
+the sources and flags (so an edited source never loads a stale library),
+then loads it with ``ctypes``.  ``ptxas_report`` keeps what ``ptxas -v``
+said of each kernel (registers, spills) in this process's build.
+Pointers and the stream pass as ``c_void_p``; each C entry point returns
+``cudaGetLastError()`` and the wrapper raises if it is not 0.
 
 There is no fallback: if ``nvcc`` is missing or the build fails, this
 raises with the compiler's output.
@@ -29,13 +31,14 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "qoaudio_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 _DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build
+ptxas_report: Optional[str] = None  # ptxas -v output of this process's build
 
 
 class BuildFailed(RuntimeError):
@@ -72,7 +75,7 @@ def _lib_path(srcs: list[str]) -> str:
 def build() -> str:
     """Compile ``csrc/*.cu`` (or reuse the library built from the same
     sources); returns the library's path.  Raises BuildFailed."""
-    global build_seconds
+    global build_seconds, ptxas_report
     srcs = sources()
     if not srcs:
         raise BuildFailed(f"no CUDA sources under {CSRC}")
@@ -87,9 +90,23 @@ def build() -> str:
         )
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    procs = []
     t0 = time.perf_counter()
     try:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(srcs, objs)]
+        for c in cmds:
+            procs.append(subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        report = []
+        for cmd, proc in zip(cmds, procs):
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise BuildFailed(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}"
+                )
+            report.append(err)
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if r.returncode != 0:
             raise BuildFailed(
@@ -98,9 +115,15 @@ def build() -> str:
             )
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for proc in procs:  # a failed build stops the other compiles
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in (tmp, *objs):
+            if os.path.exists(f):
+                os.unlink(f)
     build_seconds = time.perf_counter() - t0
+    ptxas_report = "".join(report)
     return path
 
 
@@ -108,6 +131,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.qoa_decode_chains_cuda.argtypes = [p, p, i, i, p, p]
     lib.qoa_decode_chains_cuda.restype = i
+    lib.qoa_decode_variant_cuda.argtypes = [p, p, i, i, p, i, i, p]
+    lib.qoa_decode_variant_cuda.restype = i
     lib.qoa_encode_frames_cuda.argtypes = [p, p, p, i, i, i, p, p, p, p]
     lib.qoa_encode_frames_cuda.restype = i
     lib.qoa_encode_frames_full_cuda.argtypes = [p, p, i, i, i, p, p, p, p]

@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from qoaudio_tpu import format as fmt
+from .. import format as fmt
 
 _NSF = fmt.QOA_NUM_SCALEFACTORS  # 16
 _SLEN = fmt.QOA_SLICE_LEN  # 20

@@ -42,14 +42,14 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from qoaudio_tpu import bitstream as bs
-from qoaudio_tpu import codec
-from qoaudio_tpu import format as fmt
-from qoaudio_tpu.codec import initial_encoder_state
-from qoaudio_tpu.errors import InvalidSamples
-from qoaudio_tpu.types import DecodedQoa, QoaDesc
-
+# the port's codec imports this module: ``codec`` is bound while it is
+# still importing, and only its functions are used, at call time
+from .. import bitstream as bs
+from .. import codec
+from .. import format as fmt
+from ..errors import InvalidSamples
 from ..ops import cuda_decode, cuda_encode
+from ..types import DecodedQoa, QoaDesc
 from ..utils.transfer import fetch_arrays, put_arrays
 from .mesh import (Mesh, decode_chains_sharded, encode_frames_sharded,
                    gather_chains, round_up, shard_chain_arrays)
@@ -107,15 +107,6 @@ def _placement(device, mesh) -> Mesh:
     if (device is None) == (mesh is None):
         raise ValueError("give exactly one of device= and mesh=")
     return mesh if mesh is not None else Mesh((torch.device(device),))
-
-
-def _port_codec():
-    """The port's own codec: ``"auto"`` is the native engine, else
-    ``"torch"`` on the given device.  Imported here because it imports
-    this module."""
-    from .. import codec as port_codec
-
-    return port_codec
 
 
 def _stage_words_be(parsed, offs, W: int, N: int):
@@ -202,7 +193,7 @@ def _encode_sharded(files, mesh: Mesh, chunk_frames: int, state=None):
     Np = round_up(N, mesh.size)  # padding chains run on lens 0, then drop
     f_full = min(d.samples // fmt.QOA_FRAME_LEN for _, d in files)
 
-    start = initial_encoder_state(0, Np)
+    start = codec.initial_encoder_state(0, Np)
     if state is not None:
         start[:, :N] = state
     (states,) = shard_chain_arrays(mesh, start)
@@ -297,7 +288,7 @@ def batch_decode(streams: Sequence[bytes], device=None,
     for i, (d, p) in enumerate(zip(streams, parsed)):
         if p is None:
             host_pair_files += 1
-            outs[i] = _port_codec().decode_all(d, device=on.devices[0])
+            outs[i] = codec.decode_all(d, device=on.devices[0])
         else:
             good.append(i)
     if good:
@@ -375,9 +366,8 @@ def _relayout_encode_input(dec: torch.Tensor, idx: torch.Tensor, W_enc: int):
 
 
 def _host_pair(d: bytes, device) -> bytes:
-    port_codec = _port_codec()
-    out = port_codec.decode_all(d, device=device)
-    return port_codec.encode_all(
+    out = codec.decode_all(d, device=device)
+    return codec.encode_all(
         out.samples,
         QoaDesc(out.num_channels, out.sample_rate, out.samples_per_channel),
         device=device,
@@ -586,7 +576,7 @@ def _stage_transcode(parsed, device, chunk_frames: int) -> TranscodeFusedHandle:
     rows = np.repeat(np.arange(Ne) * F_max, frames) + np.arange(int(frames.sum())) - first
     args = put_arrays(
         [dstate, words_be, _relayout_index(metas, F_max, Ne), samples,
-         initial_encoder_state(0, Ne), rows],
+         codec.initial_encoder_state(0, Ne), rows],
         device,
     )
     fn = functools.partial(
@@ -764,7 +754,7 @@ def transcode_corpus(
             "exact": False,
         }
         if verify:
-            again = _port_codec().decode_all(data, device=on.devices[0])
+            again = codec.decode_all(data, device=on.devices[0])
             err = again.samples.astype(np.float64) - c.pcm.astype(np.float64)
             r["rms"] = float(np.sqrt((err**2).mean()))
             r["exact"] = bool(np.array_equal(again.samples, c.pcm))

@@ -4,6 +4,8 @@
 kernels' plain versions) must give the same int16 samples and the same
 bytes as ``qoaudio_tpu.codec`` with ``backend="jax"`` (JAX on the CPU),
 and as the native engine or the numpy oracle.  Every comparison is exact.
+The JAX package's calls take its own types and raise its own errors; the
+port's take and raise the port's.
 Streams stay at one to three frames: the plain encoder takes about a
 second per full frame on the CPU.
 """
@@ -14,24 +16,26 @@ import numpy as np
 import pytest
 
 from qoaudio_tpu import codec as jax_codec
+from qoaudio_tpu import errors as jax_errors
 from qoaudio_tpu import format as fmt
-from qoaudio_tpu import native
 from qoaudio_tpu.errors import (
-    IncompatibleFrame,
     InvalidChannels,
     InvalidSampleRate,
     InvalidSamples,
-    IoError,
-    NoSamples,
 )
 from qoaudio_tpu.streaming import QoaEncoder as JaxEncoder
 from qoaudio_tpu.types import QoaDesc
-from qoaudio_tpu_torch import codec
+from qoaudio_tpu_torch import codec, errors, native, types
 from qoaudio_tpu_torch.ops import cuda_decode, cuda_encode
 
 from conftest import make_noise, make_sine
 
 TORCH = dict(backend="torch", device="cpu")
+
+
+def port_desc(desc):
+    """The port's QoaDesc with the fields of the JAX package's."""
+    return types.QoaDesc(desc.channels, desc.sample_rate, desc.samples)
 
 
 def frames_stream(lens, channels=1, rate=44100, seed=0, total=None):
@@ -100,21 +104,21 @@ def test_decode_all_format_change_raises_incompatible(mode):
     a = jax_codec.encode_all(make_sine(40, 1), QoaDesc(1, 44100, 40))
     b = jax_codec.encode_all(make_sine(40, 2), QoaDesc(2, 44100, 40))
     data = fmt.pack_file_header(80 if mode == "fixed" else 0) + a[8:] + b[8:]
-    with pytest.raises(IncompatibleFrame):
+    with pytest.raises(jax_errors.IncompatibleFrame):
         jax_codec.decode_all(data, backend="jax")
-    with pytest.raises(IncompatibleFrame):
+    with pytest.raises(errors.IncompatibleFrame):
         codec.decode_all(data, **TORCH)
 
 
 def test_decode_all_header_only_and_truncated():
-    with pytest.raises(NoSamples):
+    with pytest.raises(jax_errors.NoSamples):
         jax_codec.decode_all(fmt.pack_file_header(10), backend="jax")
-    with pytest.raises(NoSamples):
+    with pytest.raises(errors.NoSamples):
         codec.decode_all(fmt.pack_file_header(10), **TORCH)
     cut = frames_stream([400, 400], seed=6)[:-13]
-    with pytest.raises(IoError):
+    with pytest.raises(jax_errors.IoError):
         jax_codec.decode_all(cut, backend="jax")
-    with pytest.raises(IoError):
+    with pytest.raises(errors.IoError):
         codec.decode_all(cut, **TORCH)
 
 
@@ -153,7 +157,7 @@ def test_encode_all_matches_jax_and_oracle(n, channels, kernels, monkeypatch):
     pcm = make_noise(n, channels, seed=n, amplitude=26000)
     desc = QoaDesc(channels, 44100, n)
     calls = spy_kernels(monkeypatch)
-    got = codec.encode_all(pcm, desc, **TORCH)
+    got = codec.encode_all(pcm, port_desc(desc), **TORCH)
     assert [c[0] for c in calls] == kernels
     if n < fmt.QOA_FRAME_LEN:
         assert calls[0][1] == (1, -(-n // 20), 20, channels)  # only its windows
@@ -180,11 +184,13 @@ def test_encode_all_matches_jax_and_oracle(n, channels, kernels, monkeypatch):
 def test_encode_all_invalid_desc(desc, err, monkeypatch):
     pcm = np.zeros(40, np.int16)
     calls = spy_kernels(monkeypatch)
+    port_err = getattr(errors, err.__name__)
     for backend in ("torch", "numpy", "auto"):
-        with pytest.raises(err):
-            codec.encode_all(pcm, desc, backend=backend, device="cpu")
-        with pytest.raises(err):
-            codec.encode_all_batch([(pcm, desc)], backend=backend, device="cpu")
+        with pytest.raises(port_err):
+            codec.encode_all(pcm, port_desc(desc), backend=backend, device="cpu")
+        with pytest.raises(port_err):
+            codec.encode_all_batch([(pcm, port_desc(desc))], backend=backend,
+                                   device="cpu")
     with pytest.raises(err):
         jax_codec.encode_all(pcm, desc, backend="jax")
     assert not calls  # validated before any device work
@@ -197,7 +203,7 @@ def test_encode_all_batch_matches_jax_and_native_pairing(monkeypatch):
         (make_noise(700, 2, seed=12), QoaDesc(2, 48000, 700)),
     ]
     calls = spy_kernels(monkeypatch)
-    got = codec.encode_all_batch(files, **TORCH)
+    got = codec.encode_all_batch([(x, port_desc(d)) for x, d in files], **TORCH)
     assert [c[0] for c in calls] == ["encode_frames"]  # one launch, 4 chains
     assert calls[0][1][-1] == 4
     assert got == jax_codec.encode_all_batch(files, backend="jax")
@@ -216,11 +222,12 @@ def test_backend_names_and_devices(call, tmp_path, monkeypatch):
     data = jax_codec.encode_all(pcm, desc)
     p = tmp_path / "s.qoa"
     p.write_bytes(data)
+    pdesc = port_desc(desc)
     run = {
         "decode_all": lambda **kw: codec.decode_all(data, **kw).samples,
         "decode_range": lambda **kw: codec.decode_range(data, 5, 50, **kw).samples,
-        "encode_all": lambda **kw: codec.encode_all(pcm, desc, **kw),
-        "encode_all_batch": lambda **kw: codec.encode_all_batch([(pcm, desc)], **kw)[0],
+        "encode_all": lambda **kw: codec.encode_all(pcm, pdesc, **kw),
+        "encode_all_batch": lambda **kw: codec.encode_all_batch([(pcm, pdesc)], **kw)[0],
         "open_and_decode_all": lambda **kw: codec.open_and_decode_all(str(p), **kw).samples,
     }[call]
     want = run(backend="numpy")
@@ -249,9 +256,11 @@ def test_torch_on_a_missing_card_raises(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     data = jax_codec.encode_all(make_sine(100, 1), QoaDesc(1, 44100, 100))
-    monkeypatch.setattr(jax_codec, "decode_all", None)  # the host tier
+    for host_path in ("_decode_all_native", "_decode_numpy", "_encode_all_native",
+                      "encode_all_py"):  # the host tier
+        monkeypatch.setattr(codec, host_path, None)
     with pytest.raises(RuntimeError):
         codec.decode_all(data, backend="torch", device="cuda")
     with pytest.raises(RuntimeError):
-        codec.encode_all(make_sine(100, 1), QoaDesc(1, 44100, 100),
+        codec.encode_all(make_sine(100, 1), types.QoaDesc(1, 44100, 100),
                          backend="torch", device="cuda")

@@ -147,13 +147,13 @@ def test_ineligible_streams_take_host_pair_and_are_counted(tiny_corpus):
 
 
 def test_empty_and_invalid_inputs():
-    from qoaudio_tpu.errors import InvalidSamples
+    from qoaudio_tpu_torch import errors, types
 
     assert corpus.batch_transcode([], "cpu") == []
     assert corpus.batch_decode([], "cpu") == []
     assert corpus.batch_encode([], "cpu") == []
-    with pytest.raises(InvalidSamples):
-        corpus.batch_encode([(np.zeros(5, np.int16), QoaDesc(1, 44100, 6))], "cpu")
+    with pytest.raises(errors.InvalidSamples):
+        corpus.batch_encode([(np.zeros(5, np.int16), types.QoaDesc(1, 44100, 6))], "cpu")
 
 
 def test_transcode_corpus_report(tiny_corpus, tmp_path):

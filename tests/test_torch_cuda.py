@@ -86,6 +86,29 @@ def test_decode_kernel_fixture_chains(cuda, fixture_bytes):
     assert torch.equal(got, plain_decode.decode_chains_words(sd, wd))
 
 
+@pytest.mark.parametrize("mode", plain_decode.VARIANT_MODES)
+@pytest.mark.parametrize("threads", [64, 256])
+def test_decode_variant_kernel_matches_plain(cuda, mode, threads):
+    """Each store mode of the probe against its plain version, on every
+    position the mode defines; v0 is the production kernel."""
+    W, N = 64, 1000
+    words_be, st = _wrap_regime(W * N + threads, W, N)
+    wd = torch.from_numpy(words_be.view(np.int64)).to(cuda)
+    sd = torch.from_numpy(st).to(cuda)
+    before = cuda_decode.variant_launches
+    got = cuda_decode.decode_chains_variant(sd, wd, mode, threads)
+    torch.cuda.synchronize()
+    assert cuda_decode.variant_launches == before + 1
+    want = plain_decode.decode_chains_variant(sd, wd, mode)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if mode == "nostore":
+        assert torch.equal(got[0, 0], want[0, 0])
+    else:
+        assert torch.equal(got, want)
+    if mode == "v0":
+        assert torch.equal(got, cuda_decode.decode_chains_words(sd, wd))
+
+
 def _windows(seed, F, W, N, masked):
     rng = np.random.default_rng(seed)
     x = rng.integers(-32768, 32768, size=(F, W, 20, N)).astype(np.int16)

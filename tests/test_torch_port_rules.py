@@ -1,8 +1,11 @@
 """Rules the PyTorch port keeps, checked on the CPU.
 
-* no module of ``qoaudio_tpu_torch`` imports jax, and with jax blocked and
-  no native engine its codec, and its corpus layer's host pair, run on the
-  given device or raise ValueError; its ``codec`` is its own module;
+* no module of ``qoaudio_tpu_torch``, and not ``chip_smoke.py``, imports
+  jax or the JAX package ``qoaudio_tpu``: with both blocked every module
+  imports and the entry points run on the CPU with the JAX package's
+  outputs, and no source holds an import of ``qoaudio_tpu``; with the
+  native engine gone too, the codec and the corpus layer's host pair run on
+  the given device or raise ValueError; its ``codec`` is its own module;
 * the ``__constant__`` tables of the CUDA sources are the format's tables;
 * the word/state layout conversions round-trip;
 * without nvcc the kernel build raises, and a wrapper given a tensor that
@@ -10,6 +13,7 @@
 * the transfer and timing helpers are bit-exact / sane on the CPU.
 """
 
+import ast
 import os
 import re
 import subprocess
@@ -27,26 +31,108 @@ from qoaudio_tpu_torch.utils import timing, transfer
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_no_module_imports_jax():
-    code = (
-        "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "import qoaudio_tpu_torch as pkg\n"
-        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'qoaudio_tpu_torch.')]\n"
+BLOCK_JAX = "import sys\nsys.modules['jax'] = None\nsys.modules['qoaudio_tpu'] = None\n"
+NO_JAX_LOADED = (
+    "bad = [k for k, v in sys.modules.items() if v is not None and\n"
+    "       (k.split('.')[0] in ('jax', 'qoaudio_tpu'))]\n"
+    "assert not bad, bad\n"
+)
+
+
+def test_no_module_imports_jax(tmp_path):
+    """With jax and ``qoaudio_tpu`` blocked, every module of the port
+    imports, and a codec call, a ``QoaDecoder``/``QoaEncoder`` round trip,
+    ``batch_transcode`` and the CLI's ``info`` and ``transcode`` run on the
+    CPU with the JAX package's outputs."""
+    import contextlib
+    import io
+
+    from qoaudio_tpu import cli as jax_cli
+    from qoaudio_tpu import codec as jax_codec
+    from qoaudio_tpu.types import QoaDesc
+
+    pcm = np.random.default_rng(7).integers(-20000, 20000, 2 * 300).astype(np.int16)
+    data = jax_codec.encode_all(pcm, QoaDesc(2, 44100, 300), backend="numpy")
+    src = tmp_path / "s.qoa"
+    src.write_bytes(data)
+    np.save(tmp_path / "pcm.npy", pcm)
+    dec = jax_codec.decode_all(data, backend="numpy")
+    pair = jax_codec.encode_all(dec.samples, QoaDesc(2, 44100, 300), backend="numpy")
+    info = io.StringIO()
+    with contextlib.redirect_stdout(info):
+        assert jax_cli.main(["info", str(src)]) == 0
+    code = BLOCK_JAX + (
+        "import contextlib, importlib, io, pkgutil\n"
+        "import numpy as np\n"
+        "import qoaudio_tpu_torch as qt\n"
+        "from qoaudio_tpu_torch import cli\n"
+        "from qoaudio_tpu_torch.parallel import corpus\n"
+        "names = [m.name for m in pkgutil.walk_packages(qt.__path__, 'qoaudio_tpu_torch.')\n"
+        "         if m.module_finder.find_spec(m.name).origin.endswith('.py')]  # not the .so\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = [k for k, v in sys.modules.items() if v is not None and (k == 'jax' or k.startswith('jax.'))]\n"
-        "assert not bad, bad\n"
-        "print(' '.join(names))\n"
+        f"tmp = {str(tmp_path)!r}\n"
+        "data = open(tmp + '/s.qoa', 'rb').read()\n"
+        "pcm = np.load(tmp + '/pcm.npy')\n"
+        "T = dict(backend='torch', device='cpu')\n"
+        "np.save(tmp + '/decoded.npy', qt.decode_all(data, **T).samples)\n"
+        "enc = qt.QoaEncoder(qt.QoaDesc(2, 44100, 300), **T).encode(pcm)\n"
+        "open(tmp + '/encoded.qoa', 'wb').write(enc)\n"
+        "np.save(tmp + '/redecoded.npy', qt.QoaDecoder(enc, **T).decode_pending())\n"
+        "open(tmp + '/pair.qoa', 'wb').write(corpus.batch_transcode([data], 'cpu')[0])\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    assert cli.main(['--device', 'cpu', 'info', tmp + '/s.qoa']) == 0\n"
+        "    assert cli.main(['--device', 'cpu', 'transcode', '--hbm', tmp + '/s.qoa',\n"
+        "                     '--out-dir', tmp + '/out']) == 0\n"
+        "open(tmp + '/info.txt', 'w').write(out.getvalue())\n"
+        + NO_JAX_LOADED + "print(' '.join(names))\n"
     )
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
-        timeout=120,
+        timeout=300,
     )
     assert r.returncode == 0, r.stderr
     names = set(r.stdout.split())
-    assert len(names) >= 10  # every module was imported
-    assert {"qoaudio_tpu_torch.parallel.mesh", "qoaudio_tpu_torch.parallel.corpus",
-            "qoaudio_tpu_torch.utils.timing"} <= names
+    assert len(names) >= 20  # every module was imported
+    assert {"qoaudio_tpu_torch.parallel.mesh", "qoaudio_tpu_torch.native",
+            "qoaudio_tpu_torch.reference", "qoaudio_tpu_torch.utils.wav"} <= names
+    assert np.array_equal(np.load(tmp_path / "decoded.npy"), dec.samples)
+    assert (tmp_path / "encoded.qoa").read_bytes() == data
+    assert np.array_equal(np.load(tmp_path / "redecoded.npy"), dec.samples)
+    assert (tmp_path / "pair.qoa").read_bytes() == pair
+    assert (tmp_path / "out" / "s.qoa").read_bytes() == pair
+    assert (tmp_path / "info.txt").read_text().startswith(info.getvalue())
+
+
+_JAX_IMPORT = re.compile(
+    r"\bfrom\s+qoaudio_tpu(\.[\w.]+)?\s+import\b|\bimport\s+qoaudio_tpu(?![\w])"
+    r"|\bimport_module\(\s*['\"]qoaudio_tpu(?![\w])"
+)
+
+
+def _port_sources():
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "qoaudio_tpu_torch")):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_imports_the_jax_package(path):
+    """No import of ``qoaudio_tpu`` (only ``qoaudio_tpu_torch``) in the
+    port's code, lazily or not, nor in a string it runs as code."""
+    with open(path) as f:
+        src = f.read()
+    bad = []
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if a.name.split(".")[0] == "qoaudio_tpu"]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module.split(".")[0] == "qoaudio_tpu":
+                bad.append(node.module)
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            bad += [m.group(0) for m in _JAX_IMPORT.finditer(node.value)]
+    assert not bad, bad
 
 
 def _constant_tables():
@@ -201,17 +287,16 @@ def test_codec_without_jax_or_native_engine(tmp_path):
     src = tmp_path / "s.qoa"
     src.write_bytes(data)
     np.save(tmp_path / "pcm.npy", pcm)
-    code = (
-        "import sys\n"
-        "sys.modules['jax'] = None\n"
+    np.save(tmp_path / "want.npy", jax_codec.decode_all(data, backend="numpy").samples)
+    code = BLOCK_JAX + (
         "import numpy as np\n"
-        "from qoaudio_tpu import native\n"
+        "from qoaudio_tpu_torch import native\n"
         "native.available = lambda: False\n"
         "import qoaudio_tpu_torch as qt\n"
         f"data = open({str(src)!r}, 'rb').read()\n"
         f"pcm = np.load({str(tmp_path / 'pcm.npy')!r})\n"
         "desc = qt.QoaDesc(2, 44100, 300)\n"
-        "want = qt.decode_all(data, backend='numpy').samples\n"
+        f"want = np.load({str(tmp_path / 'want.npy')!r})\n"
         "assert np.array_equal(qt.decode_all(data, device='cpu').samples, want)\n"
         "assert qt.encode_all(pcm, desc, device='cpu') == data\n"
         "calls = [lambda: qt.decode_all(data), lambda: qt.encode_all(pcm, desc),\n"
@@ -223,8 +308,7 @@ def test_codec_without_jax_or_native_engine(tmp_path):
         "    except ValueError:\n"
         "        continue\n"
         "    raise AssertionError('no ValueError')\n"
-        "assert not [k for k, v in sys.modules.items() if v is not None and k.startswith('jax')]\n"
-        "print('ok')\n"
+        + NO_JAX_LOADED + "print('ok')\n"
     )
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -260,32 +344,32 @@ def test_corpus_host_pair_without_jax_or_native_engine(tmp_path):
         paths.append(str(tmp_path / f"s{i}.qoa"))
         with open(paths[-1], "wb") as f:
             f.write(data)
-    code = (
-        "import sys\n"
-        "sys.modules['jax'] = None\n"
+        d = jax_codec.decode_all(data, backend="numpy")
+        np.save(tmp_path / f"dec{i}.npy", d.samples)
+        (tmp_path / f"want{i}.qoa").write_bytes(jax_codec.encode_all(
+            d.samples, QoaDesc(d.num_channels, d.sample_rate, d.samples_per_channel),
+            backend="numpy"))
+    code = BLOCK_JAX + (
         "import numpy as np\n"
-        "from qoaudio_tpu import codec as host, native\n"
+        "from qoaudio_tpu_torch import native\n"
         "native.available = lambda: False\n"
-        "from qoaudio_tpu.types import QoaDesc\n"
         "from qoaudio_tpu_torch.parallel import corpus\n"
         f"paths = {paths!r}\n"
+        f"tmp = {str(tmp_path)!r}\n"
         "streams = [open(p, 'rb').read() for p in paths]\n"
-        "dec = [host.decode_all(s, backend='numpy') for s in streams]\n"
-        "want = [host.encode_all(d.samples, QoaDesc(d.num_channels, d.sample_rate,\n"
-        "        d.samples_per_channel), backend='numpy') for d in dec]\n"
+        "dec = [np.load(f'{tmp}/dec{i}.npy') for i in range(len(paths))]\n"
+        "want = [open(f'{tmp}/want{i}.qoa', 'rb').read() for i in range(len(paths))]\n"
         "got = corpus.batch_decode(streams, 'cpu')\n"
         "assert corpus.host_pair_files == 1\n"
         "for g, w in zip(got, dec):\n"
-        "    assert (g.num_channels, g.sample_rate) == (w.num_channels, w.sample_rate)\n"
-        "    assert np.array_equal(g.samples, w.samples)\n"
+        "    assert np.array_equal(g.samples, w)\n"
         "assert corpus.batch_transcode(streams, 'cpu') == want\n"
         "assert corpus.host_pair_files == 3\n"
         f"rep = corpus.transcode_corpus(paths, 'cpu', out_dir={str(tmp_path / 'out')!r})\n"
         "assert rep.ok and all(r['exact'] for r in rep.results)\n"
         "for p, w in zip(paths, want):\n"
         f"    assert open(p.replace({str(tmp_path)!r}, {str(tmp_path / 'out')!r}), 'rb').read() == w\n"
-        "assert not [k for k, v in sys.modules.items() if v is not None and k.startswith('jax')]\n"
-        "print('ok')\n"
+        + NO_JAX_LOADED + "print('ok')\n"
     )
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
