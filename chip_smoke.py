@@ -9,8 +9,10 @@ raises and exits non-zero:
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from ``qoaudio_tpu_torch/csrc`` (one nvcc per
    source, started together) and time it; each kernel's registers and
-   spills (``ptxas -v``) and its hottest loop's operations per window
-   (``cuobjdump -sass``), from which every kernel's bound is computed;
+   spills (``ptxas -v``; the production decode must keep its 32 registers
+   and no spills) and its hottest loop's ALU- and FMA-pipe operations per
+   window (``cuobjdump -sass``), from which every kernel's bound is
+   computed, each function from its leanest build;
 3. every kernel against its plain PyTorch version on CUDA tensors, exactly:
    the decoder on adversarial wrap-regime chains and on the fixture's
    chains, the masked and the full encoder on random windows;
@@ -92,6 +94,9 @@ DECODER_READAHEAD = 32  # frames per QoaDecoder batch (prefetch needs > 1)
 ENTRY_REPS = 3  # timed calls per side of each phase-5 entry point
 MIX_CLIP_SAMPLES = 4410  # phase 6's one-frame mono clips (0.1 s at 44.1 kHz)
 MIX_LONG_FILES, MIX_LONG_FRAMES = 32, 64  # and its long stereo files
+# ptxas -v of the production decode before it became the store-mode
+# template: registers per thread, spill bytes
+DECODE_V0_REGISTERS = (32, 0)
 
 
 class SmokeFailure(RuntimeError):
@@ -144,43 +149,65 @@ def bench_corpus(pcm: np.ndarray, channels: int, QoaDesc):
     return files
 
 
-def kernel_bound(key, args, ops_per_window, card) -> dict:
-    """The bound of one call of kernel ``key`` on ``args`` (its CUDA
-    inputs): bytes each input read once and each output written once, and
-    operations from the SASS loop counts (the encoders: the full-window
-    loop's per window, 16 candidate lanes per chain, over the windows with
-    samples), with the card's rates (``utils/roofline.py``)."""
+def function_ops(counts: dict) -> dict:
+    """Each function's SASS loop count from its leanest build
+    (``roofline.leanest``), keyed by function: "decode" (the decoded
+    samples: the production kernel, the probe's ``v0`` and ``stack`` at
+    every block size; also under "v0" and "stack"), the probe's other
+    modes, and "encode" (the full and the masked encoder)."""
     from qoaudio_tpu_torch.utils import roofline
 
+    def builds(*modes):
+        return [c for k, c in counts.items() if isinstance(k, tuple) and k[0] in modes]
+
+    samples = roofline.leanest(builds("v0", "stack"))
+    out = {"decode": samples, "v0": samples, "stack": samples,
+           "encode": roofline.leanest([counts["full"], counts["masked"]])}
+    for mode in ("nostore", "storeonly", "pack32"):
+        out[mode] = roofline.leanest(builds(mode))
+    return out
+
+
+def ops_bound(n_bytes, count: dict, per_window_lanes: float, card) -> dict:
+    """The bound of ``n_bytes`` moved and ``per_window_lanes`` passes of
+    the loop ``count`` (one per window per thread), with the card's rates
+    (``utils/roofline.py``)."""
+    from qoaudio_tpu_torch.utils import roofline
+
+    alu = count["alu_per_window"] * per_window_lanes
+    fma = count["fma_per_window"] * per_window_lanes
+    issued = count["instructions_per_window"] * per_window_lanes
+    ms, by = roofline.bound_ms(n_bytes, alu, fma, issued, card)
+    return {"bound_ms": ms, "bound_by": by, "bound_bytes": n_bytes,
+            "bound_alu_ops": alu, "bound_fma_ops": fma, "bound_issued": issued}
+
+
+def kernel_bound(key, args, fn_ops, card) -> dict:
+    """The bound of one call of kernel ``key`` on ``args`` (its CUDA
+    inputs): bytes each input read once and each output written once, and
+    operations from the function's leanest SASS loop (the encoders: per
+    window, 16 candidate lanes per chain, over the windows with samples)."""
     if key == "decode":
         state, words = args
         W, N = words.shape
-        n_bytes = 32 * N + 8 * W * N + 40 * W * N
-        n_ops = ops_per_window[("v0", 64)] * W * N
-    else:
-        F, W, _, N = args[1].shape
-        # state in and out, samples, snapshots, words (and the masked lens)
-        n_bytes = 64 * N + 40 * F * W * N + 32 * F * N + 8 * F * W * N
-        windows = F * W * N
-        if key == "masked":
-            n_bytes += 4 * F * W * N
-            windows = int((args[2] > 0).sum())
-        n_ops = ops_per_window["full"] * 16 * windows
-    ms, by = roofline.bound_ms(n_bytes, n_ops, card)
-    return {"bound_ms": ms, "bound_by": by, "bound_bytes": n_bytes, "bound_ops": n_ops}
+        return ops_bound(32 * N + 8 * W * N + 40 * W * N, fn_ops["decode"], W * N, card)
+    F, W, _, N = args[1].shape
+    # state in and out, samples, snapshots, words (and the masked lens)
+    n_bytes = 64 * N + 40 * F * W * N + 32 * F * N + 8 * F * W * N
+    windows = F * W * N
+    if key == "masked":
+        n_bytes += 4 * F * W * N
+        windows = int((args[2] > 0).sum())
+    return ops_bound(n_bytes, fn_ops["encode"], 16 * windows, card)
 
 
-def variant_bound(mode, threads, W, N, ops_per_window, card) -> dict:
-    """The bound of one probe launch in store mode ``mode`` at W x N with
-    ``threads`` per block: the words (and, with the LMS, the state) in; the
-    mode's output out (only out[0, 0, :] for nostore); operations from that
-    instantiation's loop."""
-    from qoaudio_tpu_torch.utils import roofline
-
+def variant_bound(mode, W, N, fn_ops, card) -> dict:
+    """The bound of one probe launch in store mode ``mode`` at W x N: the
+    words (and, with the LMS, the state) in; the mode's output out (only
+    out[0, 0, :] for nostore); operations from the mode's leanest build."""
     n_bytes = 8 * W * N + (0 if mode == "storeonly" else 32 * N)
     n_bytes += 2 * N if mode == "nostore" else 40 * W * N
-    ms, by = roofline.bound_ms(n_bytes, ops_per_window[(mode, threads)] * W * N, card)
-    return {"bound_ms": ms, "bound_by": by}
+    return ops_bound(n_bytes, fn_ops[mode], W * N, card)
 
 
 def ptxas_registers(report: str) -> dict:
@@ -362,21 +389,33 @@ def main() -> int:
         _build.library()
     nvcc_s = _build.build_seconds if _build.build_seconds is not None else 0.0
     say(f"phase 2: kernels built and loaded in {sw.elapsed:.3f} s (nvcc {nvcc_s:.3f} s)")
-    if _build.ptxas_report is not None:
+    if _build.ptxas_report is None:
+        say("phase 2: ptxas register check skipped: the library was built by an "
+            "earlier process (no ptxas report in this one)")
+    else:
         regs = ptxas_registers(_build.ptxas_report)
         want = len(VARIANT_MODES) * len(cuda_decode.VARIANT_THREADS) + 2  # + 2 encoders
         require(len(regs) == want, f"ptxas reported {sorted(regs)}")
         say("phase 2: ptxas registers (spill bytes): " + ", ".join(
             f"{k} {r} ({sp})" for k, (r, sp) in sorted(regs.items())))
-    ops = sass_ops(_build.build(), nvcc)
+        require(regs["decode<v0,64>"] == DECODE_V0_REGISTERS,
+                f"the production decode (v0, 64 threads) uses {regs['decode<v0,64>']} "
+                f"registers (spill bytes), not the {DECODE_V0_REGISTERS} of "
+                "the kernel before the store-mode template")
+    counts = sass_ops(_build.build(), nvcc)
     card_peaks = roofline.card(dev)
-    say("phase 2: SASS hottest loop, operations per window (instructions): " + ", ".join(
-        f"{k if isinstance(k, str) else '%s/%d' % k} {c['ops_per_window']:.0f} "
-        f"({c['instructions_per_window']:.0f})"
-        for k, c in ops.items()) + f"; int32 rate {card_peaks.int32_ops_per_s:.4e}/s "
-        f"({card_peaks.sms} SMs x {roofline.INT32_OPS_PER_SM_PER_CLOCK} x "
+    say("phase 2: SASS hottest loop per window, ALU + FMA operations (instructions): "
+        + ", ".join(f"{k if isinstance(k, str) else '%s/%d' % k} {c['alu_per_window']:.0f} "
+                    f"+ {c['fma_per_window']:.0f} ({c['instructions_per_window']:.0f})"
+                    for k, c in counts.items())
+        + f"; per pipe {card_peaks.pipe_ops_per_s:.4e}/s, issue "
+        f"{card_peaks.issue_ops_per_s:.4e}/s ({card_peaks.sms} SMs x "
+        f"{roofline.PIPE_OPS_PER_SM_PER_CLOCK} or {roofline.ISSUE_OPS_PER_SM_PER_CLOCK} x "
         f"{card_peaks.clock_mhz:.0f} MHz), memory {roofline.HBM_BYTES_PER_S:.3e} B/s")
-    ops_per_window = {k: c["ops_per_window"] for k, c in ops.items()}
+    fn_ops = function_ops(counts)
+    say("phase 2: each function's leanest build, ALU + FMA per window (instructions): "
+        + ", ".join(f"{k} {c['alu_per_window']:.0f} + {c['fma_per_window']:.0f} "
+                    f"({c['instructions_per_window']:.0f})" for k, c in fn_ops.items()))
 
     # ---- phase 3: each kernel against its plain version ----
     rng = np.random.default_rng(SEED)
@@ -495,7 +534,7 @@ def main() -> int:
         p_s = bench_fn(plain, *args, device=dev, warmup=0, iters=1)[0]
         shape = "x".join(str(n) for n in args[1].shape)
         kernels[key].update(ms=k_s * 1e3, plain_ms=p_s * 1e3, timed_shape=shape,
-                            **kernel_bound(key, args, ops_per_window, card_peaks))
+                            **kernel_bound(key, args, fn_ops, card_peaks))
         k = kernels[key]
         step = ""
         if key == "decode":  # the serial chain: W x 20 dependent steps
@@ -504,7 +543,8 @@ def main() -> int:
         say(f"phase 4: {key} kernel == plain on main-path inputs {shape}: "
             f"kernel {k_s * 1e3:.4f} ms, plain {p_s * 1e3:.2f} ms, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k['bound_bytes']} B, "
-            f"{k['bound_ops']:.4e} ops){step} {tag}")
+            f"{k['bound_alu_ops']:.4e} ALU + {k['bound_fma_ops']:.4e} FMA ops of "
+            f"{k['bound_issued']:.4e} issued){step} {tag}")
     for key in kernels:
         kernels[key]["max_abs_err"] = max_err[key]
 
@@ -542,7 +582,7 @@ def main() -> int:
     phase6(dev, tag, fix_dec, files, streams, want_tc, want_dec, want_enc)
 
     # ---- phase 7: the decode kernel's store-shape probe ----
-    kernels["variants"] = phase7(dev, tag, ops_per_window, card_peaks)
+    kernels["variants"] = phase7(dev, tag, fn_ops, card_peaks)
 
     # ---- phase 8: results ----
     say(json.dumps({"entry_points": entry_points}))
@@ -557,7 +597,7 @@ def main() -> int:
     return 0
 
 
-def phase7(dev, tag, ops_per_window, card) -> dict:
+def phase7(dev, tag, fn_ops, card) -> dict:
     """The store-shape probe on ``dev``: the experiment's own run (each
     mode checked against the production decode, then timed) with the
     variant launches counted from 0 around it, each mode's bound, then
@@ -582,7 +622,7 @@ def phase7(dev, tag, ops_per_window, card) -> dict:
     say(f"phase 7: probe {W} windows x {N} chains ({res['samples']} samples per launch), "
         f"every mode == the production decode at every block size; variant launches {launches}")
     for r in res["results"]:
-        r.update(variant_bound(r["mode"], r["threads"], W, N, ops_per_window, card))
+        r.update(variant_bound(r["mode"], W, N, fn_ops, card))
         say(f"phase 7: threads={r['threads']:3d} {r['mode']:9s} best {r['best_ms']:.4f} ms "
             f"({r['gsps_best']:.2f} Gsamples/s), median {r['median_ms']:.4f} ms; bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) {tag}")

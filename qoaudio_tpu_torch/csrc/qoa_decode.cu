@@ -35,8 +35,8 @@
 //   (on the TPU the carry lived in VMEM scratch across window blocks of a
 //   sequential grid; CUDA blocks run in no order, so nothing is carried
 //   between blocks, and the loop over windows runs inside the thread);
-// * small blocks (64 threads, the production launch; the probe takes 32,
-//   64, 128 or 256, the counterpart of the Pallas tile) to spread the few
+// * small blocks (64 threads, the production launch; the probe takes 64,
+//   128 or 256, the counterpart of the Pallas tile) to spread the few
 //   warps over many SMs.  The block size is a template parameter and the
 //   kernel's launch bound: a bound of 256 gave the kV0 loop 671 SASS
 //   instructions per window against 642 at 64 (cuobjdump on the H100
@@ -177,7 +177,6 @@ template <int MODE>
 int launch_mode(const void* words_be, const void* state, int n_windows, int n_chains,
                 void* out, int threads, void* stream) {
   switch (threads) {
-    case 32: return launch<MODE, 32>(words_be, state, n_windows, n_chains, out, stream);
     case 64: return launch<MODE, 64>(words_be, state, n_windows, n_chains, out, stream);
     case 128: return launch<MODE, 128>(words_be, state, n_windows, n_chains, out, stream);
     case 256: return launch<MODE, 256>(words_be, state, n_windows, n_chains, out, stream);
@@ -199,8 +198,8 @@ extern "C" int qoa_decode_chains_cuda(const void* words_be, const void* state,
 }
 
 // The store-shape probe: the same decode with store mode `mode` (0 v0,
-// 1 nostore, 2 storeonly, 3 stack, 4 pack32) and `threads` per block (32,
-// 64, 128 or 256).  out: int16 (W, 20, N), or int32 (W, 10, N) for pack32.
+// 1 nostore, 2 storeonly, 3 stack, 4 pack32) and `threads` per block (64,
+// 128 or 256).  out: int16 (W, 20, N), or int32 (W, 10, N) for pack32.
 // Returns cudaErrorInvalidValue for another mode or block size, else
 // cudaGetLastError().
 extern "C" int qoa_decode_variant_cuda(const void* words_be, const void* state,

@@ -39,7 +39,7 @@ from ..ops import decode as plain
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "tests", "fixtures", "julien_baker_sprained_ankle.qoa")
 WINDOWS, CHAINS = 256, 32768
-BLOCK_SIZES = (64, 128, 256)  # threads (chains) per block; 64 is production's
+BLOCK_SIZES = cuda_decode.VARIANT_THREADS  # threads (chains) per block; 64 is production's
 WARMUP, ITERS = 2, 10
 
 

@@ -23,7 +23,7 @@ launches = 0
 variant_launches = 0
 # the block sizes csrc/qoa_decode.cu compiles the probe for (each its own
 # instantiation, with that launch bound)
-VARIANT_THREADS = (32, 64, 128, 256)
+VARIANT_THREADS = (64, 128, 256)
 
 
 def decode_chains_words(state: torch.Tensor,

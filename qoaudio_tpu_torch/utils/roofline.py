@@ -2,17 +2,26 @@
 
 A kernel's bound is the larger of two times: the bytes its function must
 move (each input read once, each output written once) over the card's
-memory rate, and the integer operations it does on its inputs over the
-card's int32 rate.  The operations are counted from the kernel's own
-machine code: :func:`sass_loop` reads ``cuobjdump -sass`` of the built
-library, finds the kernel's hottest loop and counts its arithmetic
-instructions per window; the caller multiplies by the windows and threads
-its inputs need.
+memory rate, and the time its arithmetic instructions take to issue.  The
+instructions are counted from the kernel's own machine code:
+:func:`sass_loop` reads ``cuobjdump -sass`` of the built library, finds
+the kernel's hottest loop and counts its arithmetic instructions per
+window, split by the pipe each issues to; the caller multiplies by the
+windows and threads its inputs need.  Where several builds compute one
+function (block sizes, store shapes of the same output), :func:`leanest`
+takes the count of the build that needs the least time, so a less
+efficient build never gets a looser bound.
 
-Rates (NVIDIA's H100 SXM data sheet and Hopper white paper): 3.35 TB/s of
-HBM3; 64 int32 operations per SM per clock (16 INT32 lanes in each of an
-SM's four partitions), times the SMs and the maximum SM clock the card
-reports.
+Rates (NVIDIA's H100 SXM data sheet and Hopper white paper), per SM per
+clock, times the SMs and the maximum SM clock the card reports: 3.35 TB/s
+of HBM3; 64 lane-operations on the ALU pipe (integer add, logic, shift,
+compare, select, move: 16 lanes in each of an SM's four partitions) and 64
+on the FMA pipe (``IMAD`` and its ``.MOV``/``.SHL``/``.WIDE`` forms, the
+float FMA, add and multiply); and 128 instructions of any kind issued, as
+each partition's scheduler issues one warp instruction per clock.  So a
+loop pass of ``a`` ALU and ``f`` FMA operations among ``i`` instructions
+(loads, stores, branches and uniform ones included) takes at least
+max(a, f, i / 2) / 64 SM-clocks per thread.
 """
 
 from __future__ import annotations
@@ -21,12 +30,13 @@ import dataclasses
 import re
 import shutil
 import subprocess
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_SM_PER_CLOCK = 64
+PIPE_OPS_PER_SM_PER_CLOCK = 64  # the ALU pipe's rate, and the FMA pipe's
+ISSUE_OPS_PER_SM_PER_CLOCK = 128  # four warp instructions per SM per clock
 
 # opcodes that move data or steer control; every other instruction counts
 # as an operation (uniform-datapath U* instructions run once per warp and
@@ -35,6 +45,9 @@ _NOT_OPS = re.compile(
     r"^(LD|ST|LDG|STG|LDS|STS|LDL|STL|LDC|ATOM|RED|BRA|BRX|JMP|EXIT|RET|CALL|"
     r"BSSY|BSYNC|BAR|WARPSYNC|NOP|YIELD|DEPBAR|MEMBAR|ERRBAR|CCTL)(\.|$)|^U"
 )
+# operations that issue to the FMA pipe; every other operation counts on
+# the ALU pipe
+_FMA_PIPE = re.compile(r"^(IMAD|IMUL|IDP|FFMA|FADD|FMUL|HFMA2|HADD2|HMUL2)(\.|$)")
 _INSTR = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);"
 )
@@ -47,8 +60,13 @@ class Card:
     clock_mhz: float  # maximum SM clock
 
     @property
-    def int32_ops_per_s(self) -> float:
-        return self.sms * INT32_OPS_PER_SM_PER_CLOCK * self.clock_mhz * 1e6
+    def pipe_ops_per_s(self) -> float:
+        """Lane-operations per second on one pipe (ALU or FMA)."""
+        return self.sms * PIPE_OPS_PER_SM_PER_CLOCK * self.clock_mhz * 1e6
+
+    @property
+    def issue_ops_per_s(self) -> float:
+        return self.sms * ISSUE_OPS_PER_SM_PER_CLOCK * self.clock_mhz * 1e6
 
 
 def card(device) -> Card:
@@ -65,11 +83,27 @@ def card(device) -> Card:
     return Card(props.name, props.multi_processor_count, float(r.stdout.split()[0]))
 
 
-def bound_ms(n_bytes: float, n_ops: float, card: Card) -> tuple[float, str]:
+def ops_ms(alu: float, fma: float, issued: float, card: Card) -> float:
+    """Least ms for ``alu`` ALU-pipe and ``fma`` FMA-pipe operations among
+    ``issued`` instructions: each pipe at its own rate, every instruction
+    at the issue rate."""
+    return max(alu / card.pipe_ops_per_s, fma / card.pipe_ops_per_s,
+               issued / card.issue_ops_per_s) * 1e3
+
+
+def bound_ms(n_bytes: float, alu: float, fma: float, issued: float,
+             card: Card) -> tuple[float, str]:
     """(least ms, "bytes" or "operations": which of the two binds)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / card.int32_ops_per_s * 1e3
+    t_ops = ops_ms(alu, fma, issued, card)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def leanest(counts: Iterable[dict]) -> dict:
+    """Of several builds' :func:`sass_loop` counts for one function, the
+    one whose loop needs the least time per window."""
+    return min(counts, key=lambda c: max(c["alu_per_window"], c["fma_per_window"],
+                                         c["instructions_per_window"] / 2))
 
 
 def find_cuobjdump(nvcc: Optional[str]) -> Optional[str]:
@@ -104,7 +138,8 @@ def sass_loop(sass: str, window_load: str, loads_per_window: int) -> dict:
     load opcode each window makes ``loads_per_window`` of (it tells how
     many windows one pass of the loop runs, should the compiler unroll
     it).  Returns the loop's instructions, operations (see ``_NOT_OPS``)
-    and windows per pass, and the operations and instructions per window.
+    and windows per pass, and per window the instructions, the operations
+    and their split into the ALU and the FMA pipe (see ``_FMA_PIPE``).
     """
     instrs = [(int(a, 16), op, args) for a, op, args in _INSTR.findall(sass)]
     loops = []
@@ -118,12 +153,16 @@ def sass_loop(sass: str, window_load: str, loads_per_window: int) -> dict:
     if not inner:
         raise ValueError("no loop found in the kernel's SASS")
     a, b = max(inner, key=lambda ab: ab[1] - ab[0])
-    body = [(op, args) for addr, op, args in instrs if a <= addr <= b]
-    ops = sum(1 for op, _ in body if not _NOT_OPS.search(op))
-    loads = sum(1 for op, _ in body if re.match(window_load, op))
+    body = [op for addr, op, _ in instrs if a <= addr <= b]
+    ops = [op for op in body if not _NOT_OPS.search(op)]
+    fma = sum(1 for op in ops if _FMA_PIPE.search(op))
+    loads = sum(1 for op in body if re.match(window_load, op))
     if loads == 0 or loads % loads_per_window:
         raise ValueError(f"{loads} window loads in the loop, not a multiple of "
                          f"{loads_per_window}")
     windows = loads // loads_per_window
-    return {"instructions": len(body), "ops": ops, "windows_per_pass": windows,
-            "ops_per_window": ops / windows, "instructions_per_window": len(body) / windows}
+    return {"instructions": len(body), "ops": len(ops), "windows_per_pass": windows,
+            "ops_per_window": len(ops) / windows,
+            "alu_per_window": (len(ops) - fma) / windows,
+            "fma_per_window": fma / windows,
+            "instructions_per_window": len(body) / windows}

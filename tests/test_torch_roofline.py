@@ -1,0 +1,83 @@
+"""The kernel bound's arithmetic (``qoaudio_tpu_torch/utils/roofline.py``):
+the SASS loop count split by pipe, the per-pipe and issue rates, and the
+leanest of several builds.  The card's own numbers come from the chip run;
+these pin the counting on hand-made SASS."""
+
+import pytest
+
+from qoaudio_tpu_torch.utils import roofline
+
+CARD = roofline.Card("test card", sms=2, clock_mhz=1000.0)
+
+
+def _sass(lines):
+    """cuobjdump-style SASS, one instruction per 0x10 bytes from 0."""
+    return "\n".join(f"        /*{16 * i:04x}*/                   {ins} ;"
+                     f"   /* 0x{i:016x} */" for i, ins in enumerate(lines))
+
+
+# one window: the load, 3 ALU ops (one predicated), 2 FMA-pipe ops, a
+# uniform op and a store
+_WINDOW = ["LDG.E.64 R2, desc[UR4][R4.64]", "LOP3.LUT R6, R2, 0x7, RZ, 0xc0, !PT",
+           "@P0 IADD3 R7, R6, 0x1, RZ", "IMAD R8, R7, R9, RZ", "IMAD.MOV.U32 R9, RZ, RZ, R8",
+           "SEL R10, R8, R9, P1", "UIADD3 UR4, UR4, 0x8, URZ",
+           "STG.E.U16 desc[UR4][R12.64], R10"]
+
+
+def _loop(windows):
+    head = ["S2R R0, SR_TID.X", "IMAD R1, R0, 0x8, RZ"]  # outside the loop
+    body = _WINDOW * windows
+    back = f"@P2 BRA 0x{16 * len(head):x}"
+    return head + body + [back, "EXIT"]
+
+
+@pytest.mark.parametrize("windows", [1, 2, 4])
+def test_sass_loop_splits_the_pipes_per_window(windows):
+    c = roofline.sass_loop(_sass(_loop(windows)), r"LDG\.E\.64", 1)
+    assert c["windows_per_pass"] == windows
+    assert c["instructions"] == 8 * windows + 1  # the branch closes the loop
+    assert (c["alu_per_window"], c["fma_per_window"]) == (3, 2)
+    assert c["ops_per_window"] == 5
+    assert c["instructions_per_window"] == pytest.approx((8 * windows + 1) / windows)
+
+
+def test_sass_loop_takes_the_largest_innermost_loop():
+    small = _WINDOW[:2] + ["@P3 BRA 0x0"]  # an innermost loop of 3
+    lines = small + _loop(2)[2:]  # then a larger one, of 2 windows
+    lines[-2] = f"@P2 BRA 0x{16 * len(small):x}"
+    c = roofline.sass_loop(_sass(lines), r"LDG\.E\.64", 1)
+    assert c["windows_per_pass"] == 2 and c["instructions"] == 17
+
+
+def test_sass_loop_refuses_a_partial_window():
+    with pytest.raises(ValueError, match="not a multiple"):
+        roofline.sass_loop(_sass(_loop(3)), r"LDG\.E\.64", 2)
+
+
+# (ALU, FMA, issued) -> which term binds: 2 SMs x 64 x 1 GHz per pipe,
+# x 128 issued
+@pytest.mark.parametrize("alu, fma, issued, want_ms", [
+    (128e6, 64e6, 200e6, 1.0),  # the ALU pipe
+    (32e6, 128e6, 200e6, 1.0),  # the FMA pipe
+    (100e6, 100e6, 512e6, 2.0),  # the issue slots
+])
+def test_ops_ms_binds_on_the_slowest_pipe_or_issue(alu, fma, issued, want_ms):
+    assert roofline.ops_ms(alu, fma, issued, CARD) == pytest.approx(want_ms)
+
+
+def test_bound_ms_says_which_binds():
+    ops = (128e6, 0.0, 128e6)  # 1 ms of operations
+    ms, by = roofline.bound_ms(2 * 3.35e9, *ops, CARD)
+    assert by == "bytes" and ms == pytest.approx(2.0)
+    ms, by = roofline.bound_ms(3.35e9 / 2, *ops, CARD)
+    assert by == "operations" and ms == pytest.approx(1.0)
+
+
+def test_leanest_takes_the_build_with_the_least_time():
+    def count(alu, fma, instr):
+        return {"alu_per_window": alu, "fma_per_window": fma,
+                "ops_per_window": alu + fma, "instructions_per_window": instr}
+
+    lean = count(300, 300, 642)  # the issue slots bind it, at 321
+    builds = [count(400, 246, 671), lean, count(330, 280, 640)]
+    assert roofline.leanest(builds) is lean
