@@ -10,19 +10,23 @@ raises and exits non-zero:
 2. build the CUDA kernels from ``qoaudio_tpu_torch/csrc`` (one nvcc per
    source, started together) and time it; each kernel's registers and
    spills (``ptxas -v``; the production decode must keep its 32 registers
-   and no spills) and its hottest loop's ALU- and FMA-pipe operations per
-   window (``cuobjdump -sass``), from which every kernel's bound is
-   computed, each function from its leanest build;
+   and no spills, the encoders must not spill) and its hottest loop's ALU-
+   and FMA-pipe operations per window (``cuobjdump -sass``), from which
+   every kernel's bound is computed, each function from its leanest build;
+   the encoders' dependent path per step (the longest chain of dependent
+   SASS instructions through a window's steps, over 20);
 3. every kernel against its plain PyTorch version on CUDA tensors, exactly:
    the decoder on adversarial wrap-regime chains and on the fixture's
-   chains, the masked and the full encoder on random windows;
+   chains, the masked and the full encoder on random windows and from a
+   wrap-regime state;
 4. the batched corpus path at real size: a 33-file corpus (the bench's
    32-file recipe plus the fixture) through ``batch_transcode``,
    ``batch_decode`` and ``batch_encode`` on ``cuda``; every file
    byte-equal to the native host engine, every kernel launched, no file on
    the host pair; each kernel against its plain version again on the
    inputs the main path gave it (the encoders' first two frames), both
-   timed; the end-to-end time and each entry point's kernel time;
+   timed, and the kernel's ns per dependent step; the end-to-end time and
+   each entry point's kernel time;
 5. the public entry points on ``cuda``: ``decode_all``,
    ``open_and_decode_all``, ``decode_range`` and ``encode_all`` on the
    fixture (the re-encode's SHA-256 is the golden of tests/test_native.py),
@@ -246,20 +250,66 @@ def sass_ops(lib_path: str, nvcc: str) -> dict:
     from qoaudio_tpu_torch.ops.decode import VARIANT_MODES
     from qoaudio_tpu_torch.utils import roofline
 
-    cuobjdump = roofline.find_cuobjdump(nvcc)
-    require(cuobjdump is not None, "cuobjdump not found beside nvcc or on PATH")
-    funcs = roofline.sass_functions(lib_path, cuobjdump)
+    funcs = sass_of(lib_path, nvcc)
 
     def loop(pattern, load, per_window):
-        names = [k for k in funcs if pattern in k]
-        require(len(names) == 1, f"{pattern}: SASS functions {names}")
-        return roofline.sass_loop(funcs[names[0]], load, per_window)
+        return roofline.sass_loop(one_function(funcs, pattern), load, per_window)
 
     counts = {(mode, t): loop(f"qoa_decode_kernelILi{i}ELi{t}E", r"LDG\.E\.64", 1)
               for i, mode in enumerate(VARIANT_MODES) for t in VARIANT_THREADS}
-    counts["full"] = loop("qoa_encode_kernelILb0E", r"LDG\.E\.U16", 20)
-    counts["masked"] = loop("qoa_encode_kernelILb1E", r"LDG\.E\.U16", 20)
+    for key, pattern in ENCODE_FUNCTIONS.items():
+        counts[key] = loop(pattern, r"LDG\.E\.U16", 20)
     return counts
+
+
+# the encoders' mangled-name patterns in the SASS
+ENCODE_FUNCTIONS = {"full": "qoa_encode_kernelILb0E", "masked": "qoa_encode_kernelILb1E"}
+
+
+def sass_of(lib_path: str, nvcc) -> dict:
+    """Mangled kernel name -> SASS of the library at ``lib_path``."""
+    from qoaudio_tpu_torch.utils import roofline
+
+    cuobjdump = roofline.find_cuobjdump(nvcc)
+    require(cuobjdump is not None, "cuobjdump not found beside nvcc or on PATH")
+    return roofline.sass_functions(lib_path, cuobjdump)
+
+
+def one_function(funcs: dict, pattern: str) -> str:
+    names = [k for k in funcs if pattern in k]
+    require(len(names) == 1, f"{pattern}: SASS functions {names}")
+    return funcs[names[0]]
+
+
+def encode_paths(lib_path: str, nvcc) -> dict:
+    """Each encoder's dependent path per step ("full", "masked"): the
+    longest chain of dependent SASS instructions in its hottest loop's
+    largest straight-line block, the full-window steps, over the 20 steps
+    of a window (``roofline.sass_chain``)."""
+    from qoaudio_tpu_torch.utils import roofline
+
+    funcs = sass_of(lib_path, nvcc)
+    return {key: roofline.sass_chain(one_function(funcs, pattern), r"LDG\.E\.U16", 20, 20)
+            for key, pattern in ENCODE_FUNCTIONS.items()}
+
+
+def describe_paths(paths: dict) -> str:
+    return "encoder dependent path per step (SASS): " + ", ".join(
+        f"{k} {c['chain_per_step']:.2f} instructions ({c['chain']} over {c['steps']} steps "
+        f"in a straight-line block of {c['block_instructions']})" for k, c in paths.items())
+
+
+def print_paths(lib_path: str) -> int:
+    """Phase 2's dependent-path count for any built library, e.g. an
+    older commit's, to set beside this one's:
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.print_paths(sys.argv[1]))' LIB
+
+    Needs ``cuobjdump`` (beside nvcc), no card."""
+    from qoaudio_tpu_torch.ops import _build
+
+    say(f"{lib_path}: {describe_paths(encode_paths(lib_path, _build.find_nvcc()))}")
+    return 0
 
 
 def kernel_wrappers() -> dict:
@@ -402,7 +452,16 @@ def main() -> int:
                 f"the production decode (v0, 64 threads) uses {regs['decode<v0,64>']} "
                 f"registers (spill bytes), not the {DECODE_V0_REGISTERS} of "
                 "the kernel before the store-mode template")
-    counts = sass_ops(_build.build(), nvcc)
+        for name in ("encode<masked>", "encode<full>"):
+            require(regs[name][1] == 0, f"{name} spills {regs[name][1]} bytes")
+        say("phase 2: encoders without spills: " + ", ".join(
+            f"{name} {regs[name][0]} registers" for name in ("encode<masked>", "encode<full>")))
+    lib_path = _build.build()
+    paths = encode_paths(lib_path, nvcc)
+    for key, c in paths.items():
+        kernels[key]["chain_per_step"] = c["chain_per_step"]
+    say("phase 2: " + describe_paths(paths))
+    counts = sass_ops(lib_path, nvcc)
     card_peaks = roofline.card(dev)
     say("phase 2: SASS hottest loop per window, ALU + FMA operations (instructions): "
         + ", ".join(f"{k if isinstance(k, str) else '%s/%d' % k} {c['alu_per_window']:.0f} "
@@ -461,6 +520,15 @@ def main() -> int:
     max_err["full"] = max(max_err["full"], err)
     require(err == 0, f"full encode kernel != masked kernel at lens=20 (max err {err})")
     say(f"phase 3: full encode kernel == plain == masked kernel at lens=20, "
+        f"F={F} W={W} N={N}")
+    # the wrap regime: weights over all of int32 and history over int16 make
+    # the prediction dot, qoa_div (sf 0 and 1) and the weight update wrap
+    wrap_state = np.concatenate([rng.integers(-32768, 32768, size=(4, N)),
+                                 rng.integers(-(1 << 31), 1 << 31, size=(4, N))])
+    ws_d = torch.from_numpy(wrap_state.astype(np.int32)).to(dev)
+    compare("masked", ws_d, x_d, l_d, what="wrap-regime state")
+    compare("full", ws_d, xf, what="wrap-regime state")
+    say(f"phase 3: masked and full encode kernels == plain from a wrap-regime state, "
         f"F={F} W={W} N={N}")
 
     # ---- phase 4: the main path at real size ----
@@ -536,15 +604,15 @@ def main() -> int:
         kernels[key].update(ms=k_s * 1e3, plain_ms=p_s * 1e3, timed_shape=shape,
                             **kernel_bound(key, args, fn_ops, card_peaks))
         k = kernels[key]
-        step = ""
-        if key == "decode":  # the serial chain: W x 20 dependent steps
-            k["ns_per_step"] = k_s * 1e9 / (args[1].shape[0] * 20)
-            step = f", {k['ns_per_step']:.2f} ns per dependent step"
+        # the serial chain: W x 20 dependent steps (decode), F x W x 20 (encode)
+        steps = 20 * (args[1].shape[0] if key == "decode" else args[1].shape[0] * args[1].shape[1])
+        k["ns_per_step"] = k_s * 1e9 / steps
         say(f"phase 4: {key} kernel == plain on main-path inputs {shape}: "
             f"kernel {k_s * 1e3:.4f} ms, plain {p_s * 1e3:.2f} ms, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k['bound_bytes']} B, "
             f"{k['bound_alu_ops']:.4e} ALU + {k['bound_fma_ops']:.4e} FMA ops of "
-            f"{k['bound_issued']:.4e} issued){step} {tag}")
+            f"{k['bound_issued']:.4e} issued), {k['ns_per_step']:.2f} ns per dependent "
+            f"step {tag}")
     for key in kernels:
         kernels[key]["max_abs_err"] = max_err[key]
 
@@ -588,7 +656,7 @@ def main() -> int:
     say(json.dumps({"entry_points": entry_points}))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape",
-             "main_path_ms", "ns_per_step", "modes")
+             "main_path_ms", "ns_per_step", "chain_per_step", "modes")
     say(json.dumps({"kernels": [{k: v[k] for k in order if k in v}
                                 for v in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {

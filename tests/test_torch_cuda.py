@@ -119,11 +119,20 @@ def _windows(seed, F, W, N, masked):
     return x.astype(np.int16), lens, carry
 
 
+@pytest.mark.parametrize("wrap", [False, True])
 @pytest.mark.parametrize("masked", [True, False])
 @pytest.mark.parametrize("F, W, N", [(2, 16, 256), (3, 5, 33)])
-def test_encode_kernels_match_plain(cuda, masked, F, W, N):
-    x, lens, carry = (torch.from_numpy(a).to(cuda)
-                      for a in _windows(F * W + N, F, W, N, masked))
+def test_encode_kernels_match_plain(cuda, masked, F, W, N, wrap):
+    """Random windows from a random state, or from a wrap-regime state:
+    weights over all of int32 and history over int16 make the prediction
+    dot, qoa_div (sf 0 and 1) and the weight update wrap."""
+    x, lens, carry = _windows(F * W + N, F, W, N, masked)
+    if wrap:
+        rng = np.random.default_rng(F * W * N)
+        carry = np.concatenate([rng.integers(-32768, 32768, size=(4, N)),
+                                rng.integers(-(1 << 31), 1 << 31, size=(4, N))]
+                               ).astype(np.int32)
+    x, lens, carry = (torch.from_numpy(a).to(cuda) for a in (x, lens, carry))
     if masked:
         got = cuda_encode.encode_frames(carry, x, lens)
         want = plain_encode.encode_frames(carry, x, lens)

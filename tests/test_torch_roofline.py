@@ -81,3 +81,44 @@ def test_leanest_takes_the_build_with_the_least_time():
     lean = count(300, 300, 642)  # the issue slots bind it, at 321
     builds = [count(400, 246, 671), lean, count(330, 280, 640)]
     assert roofline.leanest(builds) is lean
+
+
+# one window of a serial recurrence, 7 instructions deep: through a load,
+# a predicate, IMAD.WIDE's register pair and a shuffle; two instructions
+# off the path (one predicated, so it also waits on its own destination)
+_STEP = ["LDG.E.U16 R2, desc[UR4][R4.64]", "IADD3 R6, R2, -R7, RZ",
+         "ISETP.GE.AND P0, PT, R6, 0x10, PT", "SEL R8, R6, RZ, P0",
+         "IMAD.WIDE R10, R8, R8, R10", "IADD3 R12, R11, 0x1, RZ",
+         "LOP3.LUT R13, R9, 0x1, RZ, 0xc0, !PT", "@P0 IADD3 R7, R13, 0x1, RZ",
+         "SHFL.BFLY PT, R14, R12, 0x8, 0x1f"]
+
+
+def _chain_loop(body):
+    head = ["S2R R0, SR_TID.X"]
+    return head + body + ["@P2 BRA 0x10", "EXIT"]
+
+
+def test_sass_chain_follows_registers_pairs_and_predicates():
+    c = roofline.sass_chain(_sass(_chain_loop(_STEP)), r"LDG\.E\.U16", 1, 1)
+    assert (c["chain"], c["steps"], c["block_instructions"]) == (7, 1, 10)
+    c = roofline.sass_chain(_sass(_chain_loop(_STEP)), r"LDG\.E\.U16", 1, 7)
+    assert c["chain_per_step"] == pytest.approx(1.0)
+
+
+def test_sass_chain_carry_out_predicates_feed_the_high_word():
+    body = ["LDG.E.U16 R2, desc[UR4][R4.64]", "IADD3 R6, P1, R2, R8, RZ",
+            "IADD3.X R7, RZ, R9, RZ, P1, !PT", "IMAD R3, R7, R7, RZ"]
+    c = roofline.sass_chain(_sass(_chain_loop(body)), r"LDG\.E\.U16", 1, 1)
+    assert c["chain"] == 4
+
+
+def test_sass_chain_takes_the_largest_straight_line_block():
+    # a short block, a forward branch over one instruction, then a longer
+    # block entered by that branch: the chain is the longer block's alone
+    short = ["LDG.E.U16 R2, desc[UR4][R4.64]", "IADD3 R3, R2, 0x1, RZ", "@P1 BRA 0x50",
+             "IADD3 R3, R3, 0x1, RZ"]
+    longer = ["IADD3 R5, R3, 0x1, RZ", "IADD3 R6, R5, 0x1, RZ", "IADD3 R7, R6, 0x1, RZ",
+              "IADD3 R8, R7, 0x1, RZ", "IADD3 R9, R1, 0x1, RZ"]
+    c = roofline.sass_chain(_sass(_chain_loop(short + longer)), r"LDG\.E\.U16", 1, 2)
+    assert (c["block_instructions"], c["chain"]) == (6, 4)  # the loop's branch ends it
+    assert c["chain_per_step"] == pytest.approx(2.0)
