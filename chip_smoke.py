@@ -9,16 +9,19 @@ raises and exits non-zero:
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from ``qoaudio_tpu_torch/csrc`` (one nvcc per
    source, started together) and time it; each kernel's registers and
-   spills (``ptxas -v``; the production decode must keep its 32 registers
-   and no spills, the encoders must not spill) and its hottest loop's ALU-
-   and FMA-pipe operations per window (``cuobjdump -sass``), from which
-   every kernel's bound is computed, each function from its leanest build;
-   the encoders' dependent path per step (the longest chain of dependent
-   SASS instructions through a window's steps, over 20);
+   spills (``ptxas -v``; no decode instantiation and no encoder may spill;
+   the production decode's registers are printed) and its hottest loop's
+   ALU- and FMA-pipe operations per window (``cuobjdump -sass``), from
+   which every kernel's bound is computed, each function from its leanest
+   build; the production decode's and the encoders' dependent path per
+   step (the longest chain of dependent SASS instructions through a
+   window's steps, over 20);
 3. every kernel against its plain PyTorch version on CUDA tensors, exactly:
-   the decoder on adversarial wrap-regime chains and on the fixture's
-   chains, the masked and the full encoder on random windows and from a
-   wrap-regime state;
+   the decoder on adversarial wrap-regime chains (random words, weights
+   over all of int32), on a ragged shape (one window, a chain count that
+   is no multiple of the block) and on the fixture's chains, each also
+   against the native engine; the masked and the full encoder on random
+   windows and from a wrap-regime state;
 4. the batched corpus path at real size: a 33-file corpus (the bench's
    32-file recipe plus the fixture) through ``batch_transcode``,
    ``batch_decode`` and ``batch_encode`` on ``cuda``; every file
@@ -98,9 +101,7 @@ DECODER_READAHEAD = 32  # frames per QoaDecoder batch (prefetch needs > 1)
 ENTRY_REPS = 3  # timed calls per side of each phase-5 entry point
 MIX_CLIP_SAMPLES = 4410  # phase 6's one-frame mono clips (0.1 s at 44.1 kHz)
 MIX_LONG_FILES, MIX_LONG_FRAMES = 32, 64  # and its long stereo files
-# ptxas -v of the production decode before it became the store-mode
-# template: registers per thread, spill bytes
-DECODE_V0_REGISTERS = (32, 0)
+PRODUCTION_DECODE = "decode<v0,64>"  # store mode v0 at 64 threads, as ptxas_registers names it
 
 
 class SmokeFailure(RuntimeError):
@@ -216,18 +217,9 @@ def variant_bound(mode, W, N, fn_ops, card) -> dict:
 
 def ptxas_registers(report: str) -> dict:
     """kernel (short name) -> (registers, spill bytes) from ``ptxas -v``."""
-    out, name = {}, None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name, spill = short_kernel_name(m.group(1)), 0
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out[name] = (int(m.group(1)), spill)
-    return out
+    from qoaudio_tpu_torch.ops import _build
+
+    return {short_kernel_name(k): v for k, v in _build.ptxas_registers(report).items()}
 
 
 def short_kernel_name(mangled: str) -> str:
@@ -255,7 +247,7 @@ def sass_ops(lib_path: str, nvcc: str) -> dict:
     def loop(pattern, load, per_window):
         return roofline.sass_loop(one_function(funcs, pattern), load, per_window)
 
-    counts = {(mode, t): loop(f"qoa_decode_kernelILi{i}ELi{t}E", r"LDG\.E\.64", 1)
+    counts = {(mode, t): loop(decode_function(i, t), DECODE_WINDOW_LOAD, 1)
               for i, mode in enumerate(VARIANT_MODES) for t in VARIANT_THREADS}
     for key, pattern in ENCODE_FUNCTIONS.items():
         counts[key] = loop(pattern, r"LDG\.E\.U16", 20)
@@ -264,6 +256,14 @@ def sass_ops(lib_path: str, nvcc: str) -> dict:
 
 # the encoders' mangled-name patterns in the SASS
 ENCODE_FUNCTIONS = {"full": "qoa_encode_kernelILb0E", "masked": "qoa_encode_kernelILb1E"}
+# the decoder's one load per window: the word, plain or through the
+# read-only path (LDG.E.64.CONSTANT)
+DECODE_WINDOW_LOAD = r"LDG\.E\.64"
+
+
+def decode_function(mode_index: int, threads: int) -> str:
+    """The mangled-name pattern of one decode instantiation."""
+    return f"qoa_decode_kernelILi{mode_index}ELi{threads}E"
 
 
 def sass_of(lib_path: str, nvcc) -> dict:
@@ -281,20 +281,25 @@ def one_function(funcs: dict, pattern: str) -> str:
     return funcs[names[0]]
 
 
-def encode_paths(lib_path: str, nvcc) -> dict:
-    """Each encoder's dependent path per step ("full", "masked"): the
-    longest chain of dependent SASS instructions in its hottest loop's
-    largest straight-line block, the full-window steps, over the 20 steps
-    of a window (``roofline.sass_chain``)."""
+def dependent_paths(lib_path: str, nvcc) -> dict:
+    """The dependent path per step of the production decode ("decode":
+    store mode ``v0`` at 64 threads) and of each encoder ("full",
+    "masked"): the longest chain of dependent SASS instructions in the
+    hottest loop's largest straight-line block (a window's unrolled
+    steps; the encoders' full-window steps), over the 20 steps of a
+    window (``roofline.sass_chain``)."""
     from qoaudio_tpu_torch.utils import roofline
 
     funcs = sass_of(lib_path, nvcc)
-    return {key: roofline.sass_chain(one_function(funcs, pattern), r"LDG\.E\.U16", 20, 20)
-            for key, pattern in ENCODE_FUNCTIONS.items()}
+    paths = {"decode": roofline.sass_chain(one_function(funcs, decode_function(0, 64)),
+                                           DECODE_WINDOW_LOAD, 1, 20)}
+    for key, pattern in ENCODE_FUNCTIONS.items():
+        paths[key] = roofline.sass_chain(one_function(funcs, pattern), r"LDG\.E\.U16", 20, 20)
+    return paths
 
 
 def describe_paths(paths: dict) -> str:
-    return "encoder dependent path per step (SASS): " + ", ".join(
+    return "dependent path per step (SASS): " + ", ".join(
         f"{k} {c['chain_per_step']:.2f} instructions ({c['chain']} over {c['steps']} steps "
         f"in a straight-line block of {c['block_instructions']})" for k, c in paths.items())
 
@@ -308,7 +313,7 @@ def print_paths(lib_path: str) -> int:
     Needs ``cuobjdump`` (beside nvcc), no card."""
     from qoaudio_tpu_torch.ops import _build
 
-    say(f"{lib_path}: {describe_paths(encode_paths(lib_path, _build.find_nvcc()))}")
+    say(f"{lib_path}: {describe_paths(dependent_paths(lib_path, _build.find_nvcc()))}")
     return 0
 
 
@@ -448,16 +453,14 @@ def main() -> int:
         require(len(regs) == want, f"ptxas reported {sorted(regs)}")
         say("phase 2: ptxas registers (spill bytes): " + ", ".join(
             f"{k} {r} ({sp})" for k, (r, sp) in sorted(regs.items())))
-        require(regs["decode<v0,64>"] == DECODE_V0_REGISTERS,
-                f"the production decode (v0, 64 threads) uses {regs['decode<v0,64>']} "
-                f"registers (spill bytes), not the {DECODE_V0_REGISTERS} of "
-                "the kernel before the store-mode template")
-        for name in ("encode<masked>", "encode<full>"):
-            require(regs[name][1] == 0, f"{name} spills {regs[name][1]} bytes")
-        say("phase 2: encoders without spills: " + ", ".join(
-            f"{name} {regs[name][0]} registers" for name in ("encode<masked>", "encode<full>")))
+        for name, (_, spill) in regs.items():  # every decode instantiation, both encoders
+            require(spill == 0, f"{name} spills {spill} bytes")
+        kernels["decode"]["registers"] = regs[PRODUCTION_DECODE][0]
+        say("phase 2: no kernel spills; the production decode "
+            f"({PRODUCTION_DECODE}) {regs[PRODUCTION_DECODE][0]} registers, " + ", ".join(
+                f"{name} {regs[name][0]}" for name in ("encode<masked>", "encode<full>")))
     lib_path = _build.build()
-    paths = encode_paths(lib_path, nvcc)
+    paths = dependent_paths(lib_path, nvcc)
     for key, c in paths.items():
         kernels[key]["chain_per_step"] = c["chain_per_step"]
     say("phase 2: " + describe_paths(paths))
@@ -479,16 +482,21 @@ def main() -> int:
     # ---- phase 3: each kernel against its plain version ----
     rng = np.random.default_rng(SEED)
 
-    N, W = 4096, 256  # decoder, adversarial wrap-regime chains
-    wl = rng.integers(0, 1 << 63, size=(W, N), dtype=np.int64).astype(np.uint64) | (
-        rng.integers(0, 16, size=(W, N), dtype=np.uint64) << np.uint64(60))
-    st = rng.integers(-32768, 32768, size=(8, N)).astype(np.int32)
-    got = compare("decode", torch.from_numpy(st).to(dev),
-                  torch.from_numpy(wl.byteswap().view(np.int64)).to(dev),
-                  what="wrap-regime chains")
-    require(np.array_equal(got[0].cpu().numpy(), native.decode_chains(wl.byteswap(), st)),
-            "decode kernel != native engine on wrap-regime chains")
-    say(f"phase 3: decode kernel == plain == native, wrap-regime chains W={W} N={N}")
+    # decoder, adversarial chains in the wrap regime: random words over
+    # every sf, history over int16 and weights over all of int32, so the
+    # prediction dot and the weight update wrap at every step; then a
+    # ragged shape: one window, chains no multiple of the block
+    for W, N, what in ((256, 4096, "wrap-regime chains"), (1, 4097, "ragged wrap-regime chains")):
+        wl = rng.integers(0, 1 << 63, size=(W, N), dtype=np.int64).astype(np.uint64) | (
+            rng.integers(0, 16, size=(W, N), dtype=np.uint64) << np.uint64(60))
+        st = np.concatenate([rng.integers(-32768, 32768, size=(4, N)),
+                             rng.integers(-(1 << 31), 1 << 31, size=(4, N))]).astype(np.int32)
+        got = compare("decode", torch.from_numpy(st).to(dev),
+                      torch.from_numpy(wl.byteswap().view(np.int64)).to(dev), what=what)
+        require(np.array_equal(got[0].cpu().numpy(), native.decode_chains(wl.byteswap(), st)),
+                f"decode kernel != native engine on {what}")
+        say(f"phase 3: decode kernel == plain == native, {what} (weights over all of "
+            f"int32) W={W} N={N}")
 
     with open(FIXTURE, "rb") as f:
         fixture = f.read()
@@ -651,12 +659,14 @@ def main() -> int:
 
     # ---- phase 7: the decode kernel's store-shape probe ----
     kernels["variants"] = phase7(dev, tag, fn_ops, card_peaks)
+    # the probe's v0 at 64 threads is the production kernel
+    kernels["variants"]["chain_per_step"] = kernels["decode"]["chain_per_step"]
 
     # ---- phase 8: results ----
     say(json.dumps({"entry_points": entry_points}))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape",
-             "main_path_ms", "ns_per_step", "chain_per_step", "modes")
+             "main_path_ms", "ns_per_step", "chain_per_step", "registers", "modes")
     say(json.dumps({"kernels": [{k: v[k] for k in order if k in v}
                                 for v in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {

@@ -18,6 +18,17 @@ package imports nothing of jax and nothing of ``qoaudio_tpu``.
 
 from . import bitstream, native, types  # noqa: F401
 from . import format  # noqa: F401,A004
+from .format import (  # noqa: F401
+    QOA_FRAME_LEN,
+    QOA_HEADER_SIZE,
+    QOA_LMS_LEN,
+    QOA_MAGIC,
+    QOA_MAX_CHANNELS,
+    QOA_SLICE_LEN,
+    QOA_SLICES_PER_FRAME,
+    MAX_SLICES_PER_CHANNEL_PER_FRAME,
+    qoa_frame_size,
+)
 from .errors import (  # noqa: F401
     DecodeError,
     EncodeError,
@@ -51,6 +62,8 @@ from .codec import (  # noqa: F401
 from .source import QoaPcmSource  # noqa: F401
 from .streaming import QoaDecoder, QoaEncoder  # noqa: F401
 
+__version__ = "0.1.0"
+
 __all__ = [
     "bitstream",
     "codec",
@@ -71,6 +84,15 @@ __all__ = [
     "QoaDecoder",
     "QoaEncoder",
     "QoaPcmSource",
+    "QOA_FRAME_LEN",
+    "QOA_HEADER_SIZE",
+    "QOA_LMS_LEN",
+    "QOA_MAGIC",
+    "QOA_MAX_CHANNELS",
+    "QOA_SLICE_LEN",
+    "QOA_SLICES_PER_FRAME",
+    "MAX_SLICES_PER_CHANNEL_PER_FRAME",
+    "qoa_frame_size",
     "DecodeError",
     "EncodeError",
     "IncompatibleFrame",

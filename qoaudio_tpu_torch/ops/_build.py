@@ -20,6 +20,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -125,6 +126,22 @@ def build() -> str:
     build_seconds = time.perf_counter() - t0
     ptxas_report = "".join(report)
     return path
+
+
+def ptxas_registers(report: str) -> dict:
+    """Mangled kernel name -> (registers, spill bytes) from ``ptxas -v``."""
+    out, name, spill = {}, None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), spill)
+    return out
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -78,6 +78,26 @@ def test_decode_kernel_matches_plain_and_native(cuda, W, N):
         assert np.array_equal(got.cpu().numpy(), native.decode_chains(words_be, st))
 
 
+@pytest.mark.parametrize("W, N", [(256, 1000), (1, 4097), (3, 65), (1, 1)])
+def test_decode_kernel_int32_weights_and_ragged_shapes(cuda, W, N):
+    """Weights over all of int32 (history over int16): the prediction dot
+    and the weight update wrap at every step; chain counts that are no
+    multiple of the block, and a single window."""
+    words_be, st = _wrap_regime(7 * W + N, W, N)
+    st[4:] = np.random.default_rng(W * N).integers(-(1 << 31), 1 << 31, size=(4, N))
+    wd = torch.from_numpy(words_be.view(np.int64)).to(cuda)
+    sd = torch.from_numpy(st).to(cuda)
+    got = cuda_decode.decode_chains_words(sd, wd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain_decode.decode_chains_words(sd, wd))
+    if native.available():
+        assert np.array_equal(got.cpu().numpy(), native.decode_chains(words_be, st))
+    for mode in ("stack", "nostore"):  # the probe's modes carry the same recurrence
+        out = cuda_decode.decode_chains_variant(sd, wd, mode)
+        assert torch.equal(out[0, 0] if mode == "nostore" else out,
+                           got[-1, -1] if mode == "nostore" else got)
+
+
 def test_decode_kernel_fixture_chains(cuda, fixture_bytes):
     pa = bitstream.parse_file_arrays(fixture_bytes)
     wd = torch.from_numpy(np.ascontiguousarray(pa.words_be).view(np.int64)).to(cuda)

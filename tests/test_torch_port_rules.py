@@ -275,6 +275,27 @@ def test_codec_is_the_ports_own():
     assert qoaudio_tpu_torch.decode_all is qoaudio_tpu_torch.codec.decode_all
 
 
+def test_top_level_surface_covers_the_jax_packages():
+    """Every public name of ``qoaudio_tpu`` is a public name of the port,
+    the format constants are equal, and ``qoa_frame_size`` agrees."""
+    import qoaudio_tpu
+    import qoaudio_tpu_torch
+
+    missing = [n for n in qoaudio_tpu.__all__ if n not in qoaudio_tpu_torch.__all__]
+    assert not missing, missing
+    for name in qoaudio_tpu_torch.__all__:
+        assert hasattr(qoaudio_tpu_torch, name), name
+    constants = [n for n in qoaudio_tpu.__all__ if n.isupper()]
+    assert len(constants) == 8
+    for name in constants:
+        assert getattr(qoaudio_tpu_torch, name) == getattr(qoaudio_tpu, name), name
+    for channels in (1, 2, 8):
+        for slices in (1, 17, 256):
+            assert qoaudio_tpu_torch.qoa_frame_size(channels, slices) == \
+                qoaudio_tpu.qoa_frame_size(channels, slices)
+    assert qoaudio_tpu_torch.__version__ == qoaudio_tpu.__version__
+
+
 def test_codec_without_jax_or_native_engine(tmp_path):
     """With jax blocked and no native engine, the port's codec runs on the
     given device, or raises ValueError when none is given — never

@@ -122,3 +122,36 @@ def test_sass_chain_takes_the_largest_straight_line_block():
     c = roofline.sass_chain(_sass(_chain_loop(short + longer)), r"LDG\.E\.U16", 1, 2)
     assert (c["block_instructions"], c["chain"]) == (6, 4)  # the loop's branch ends it
     assert c["chain_per_step"] == pytest.approx(2.0)
+
+
+# the decoder's software-pipelined window: the word comes through the
+# read-only path two windows ahead, the next window's dequantizer (PRMT
+# and a multiply, from registers loaded a pass earlier) stands beside the
+# steps, and each step adds four dependent instructions to the carried
+# prediction: IMAD on the newest sample, the fused >> 13 and + dq, and
+# the two halves of the clamp; the older taps, the sign, the weight
+# update and the store hang off that path
+def _decode_step(prev, new):
+    return [f"IMAD R20, R30, {prev}, R22", "LEA.HI.SX32 R20, R20, R40, 0x13",
+            "VIMNMX R20, R20, -0x8000, !PT", f"VIMNMX {new}, R20, 0x7fff, PT",
+            f"IMAD R22, R31, {prev}, RZ", f"SHF.R.S32.HI R23, RZ, 0x1f, {prev}",
+            "LOP3.LUT R23, R23, 0x1, RZ, 0xfc, !PT", "IMAD R30, R23, R41, R30",
+            f"STG.E.U16 desc[UR6][R10.64], {new}", "IADD3 R10, P0, R10, R50, RZ",
+            "IMAD.X R11, R11, 0x1, R51, P0",
+            "PRMT R42, R60, R61, R62", "IMAD R43, R42, R63, RZ"]
+
+
+@pytest.mark.parametrize("steps", [2, 20])
+def test_sass_counts_follow_the_decoders_pipelined_window(steps):
+    body = ["LDG.E.64.CONSTANT R2, desc[UR6][R4.64]"]
+    for k in range(steps):
+        body += _decode_step(*(("R21", "R26") if k % 2 == 0 else ("R26", "R21")))
+    sass = _sass(_chain_loop(body))
+    c = roofline.sass_chain(sass, r"LDG\.E\.64", 1, steps)
+    assert (c["steps"], c["chain"]) == (steps, 4 * steps + 1)  # + the last sample's store
+    assert c["chain_per_step"] == pytest.approx(4.0 + 1 / steps)
+    assert c["block_instructions"] == len(body) + 1  # the loop's branch ends it
+    loop = roofline.sass_loop(sass, r"LDG\.E\.64", 1)
+    assert loop["windows_per_pass"] == 1
+    assert (loop["alu_per_window"], loop["fma_per_window"]) == (7 * steps, 5 * steps)
+    assert loop["instructions_per_window"] == 13 * steps + 2  # the load and the branch
