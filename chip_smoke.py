@@ -59,9 +59,22 @@ raises and exits non-zero:
    three block sizes on the fixture's chains tiled to W=256 x N=32,768),
    every mode checked against the production decode and timed, with its
    bound, then every mode against its plain version on the same inputs;
-8. one JSON line of entry points, one of kernels (each with its launches
-   on its path, error against its plain version, time, plain time and
-   bound), then ``{"ok": true, "device": ...}`` last.
+8. the port's benchmark (``qoaudio_tpu_torch.bench``) at full size in
+   process on ``cuda``: every parity gate passed, each section's kernel
+   launches (counted from 0 around the run, and per section by the bench)
+   equal to what the section needs, and its JSON line holding every metric
+   with a positive number;
+9. the port's entry module (``qoaudio_tpu_torch.graft_entry``): the
+   flagship step once (one masked launch, words and state equal to the
+   plain version's), then the six-step dry run on a mesh of 4 shards over
+   the cards present;
+10. the transcode pipeline's stages on the smoke corpus, each between CUDA
+    events (``qoaudio_tpu_torch.experiments.transcode_profile``), on one
+    line;
+11. one JSON line of entry points, one of the bench's result, one of
+    kernels (each with its launches on the main path and in the bench,
+    error against its plain version, time, plain time and bound), then
+    ``{"ok": true, "device": ...}`` last.
 
 Without a CUDA device it exits 2 and prints no result.  It imports nothing
 of jax and nothing of the JAX package ``qoaudio_tpu``: the port carries its
@@ -136,24 +149,6 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def bench_corpus(pcm: np.ndarray, channels: int, QoaDesc):
-    """The bench's 32-file corpus recipe (bench.py:377-391): 64/128/256
-    frames, 2/1 channels, 44.1/22.05/48 kHz, real PCM tiled from the
-    fixture."""
-    stereo = pcm.reshape(-1, channels)
-    n_src = stereo.shape[0]
-    files, pos = [], 0
-    for i in range(32):
-        spc = (64, 128, 256)[i % 3] * 5120
-        ch = (2, 1, 2, 1)[i % 4]
-        rate = (44100, 22050, 48000)[i % 3]
-        idx = (pos + np.arange(spc)) % n_src
-        blk = stereo[idx][:, :ch]  # mono files take the left channel
-        files.append((np.ascontiguousarray(blk).reshape(-1), QoaDesc(ch, rate, spc)))
-        pos = (pos + spc + 9973) % n_src
-    return files
-
-
 def function_ops(counts: dict) -> dict:
     """Each function's SASS loop count from its leanest build
     (``roofline.leanest``), keyed by function: "decode" (the decoded
@@ -187,23 +182,33 @@ def ops_bound(n_bytes, count: dict, per_window_lanes: float, card) -> dict:
             "bound_alu_ops": alu, "bound_fma_ops": fma, "bound_issued": issued}
 
 
+def decode_bound(W, N, fn_ops, card) -> dict:
+    """The bound of one decode launch at W windows x N chains: state and
+    words in, samples out; one pass of the loop per window per chain."""
+    return ops_bound(32 * N + 8 * W * N + 40 * W * N, fn_ops["decode"], W * N, card)
+
+
+def encode_bound(masked, F, W, N, windows, fn_ops, card) -> dict:
+    """The bound of one encode launch at F frames x W windows x N chains,
+    ``windows`` of which hold samples: state in and out, samples,
+    snapshots, words (and the masked lens); per window 16 candidate lanes
+    per chain."""
+    n_bytes = 64 * N + 40 * F * W * N + 32 * F * N + 8 * F * W * N
+    if masked:
+        n_bytes += 4 * F * W * N
+    return ops_bound(n_bytes, fn_ops["encode"], 16 * windows, card)
+
+
 def kernel_bound(key, args, fn_ops, card) -> dict:
     """The bound of one call of kernel ``key`` on ``args`` (its CUDA
     inputs): bytes each input read once and each output written once, and
-    operations from the function's leanest SASS loop (the encoders: per
-    window, 16 candidate lanes per chain, over the windows with samples)."""
+    operations from the function's leanest SASS loop (the masked encoder:
+    over the windows with samples)."""
     if key == "decode":
-        state, words = args
-        W, N = words.shape
-        return ops_bound(32 * N + 8 * W * N + 40 * W * N, fn_ops["decode"], W * N, card)
+        return decode_bound(*args[1].shape, fn_ops, card)
     F, W, _, N = args[1].shape
-    # state in and out, samples, snapshots, words (and the masked lens)
-    n_bytes = 64 * N + 40 * F * W * N + 32 * F * N + 8 * F * W * N
-    windows = F * W * N
-    if key == "masked":
-        n_bytes += 4 * F * W * N
-        windows = int((args[2] > 0).sum())
-    return ops_bound(n_bytes, fn_ops["encode"], 16 * windows, card)
+    windows = int((args[2] > 0).sum()) if key == "masked" else F * W * N
+    return encode_bound(key == "masked", F, W, N, windows, fn_ops, card)
 
 
 def variant_bound(mode, W, N, fn_ops, card) -> dict:
@@ -360,14 +365,16 @@ def balanced_groups(parsed, k: int):
 
 
 def smoke_corpus(fixture: bytes):
-    """The 33-file smoke corpus (the bench's 32 files plus the fixture) and
+    """The 33-file smoke corpus (the bench's 32-file recipe,
+    ``bench.bench_spec``, plus the fixture) and
     the native engine's answers: (fixture PCM, files, streams, decodes,
     decode -> encode pairs, encodes)."""
-    from qoaudio_tpu_torch import codec, types
+    from qoaudio_tpu_torch import bench, codec, types
 
     QoaDesc = types.QoaDesc
     fix_dec = codec.decode_all(fixture, backend="native")
-    files = bench_corpus(fix_dec.samples, fix_dec.num_channels, QoaDesc)
+    files = bench.build_files(fix_dec.samples.reshape(-1, fix_dec.num_channels),
+                              bench.bench_spec())
     files.append((fix_dec.samples, QoaDesc(fix_dec.num_channels, fix_dec.sample_rate,
                                            fix_dec.samples_per_channel)))
     streams = [codec.encode_all(p, d, backend="native") for p, d in files[:-1]]
@@ -662,17 +669,215 @@ def main() -> int:
     # the probe's v0 at 64 threads is the production kernel
     kernels["variants"]["chain_per_step"] = kernels["decode"]["chain_per_step"]
 
-    # ---- phase 8: results ----
+    # ---- phase 8: the port's benchmark ----
+    bench_result, bench_launches = phase_bench(dev, card, streams[:-1], fn_ops, card_peaks)
+    for key in kernels:  # the probe's count is read too: the bench launches it no time
+        kernels[key]["bench_launches"] = bench_launches[key]
+
+    # ---- phase 9: the flagship step and the dry run ----
+    phase_entry(dev)
+
+    # ---- phase 10: the transcode pipeline stage by stage ----
+    phase_profile(dev, tag, streams)
+
+    # ---- phase 11: results ----
     say(json.dumps({"entry_points": entry_points}))
+    say(json.dumps({"bench": bench_result}))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape",
-             "main_path_ms", "ns_per_step", "chain_per_step", "registers", "modes")
+             "main_path_ms", "ns_per_step", "chain_per_step", "registers", "bench_launches",
+             "modes")
     say(json.dumps({"kernels": [{k: v[k] for k in order if k in v}
                                 for v in kernels.values()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def phase_bench(dev, card, bench_streams, fn_ops, card_peaks):
+    """The port's benchmark at full size on ``dev``, in process: a failed
+    parity gate raises out of it.  The launches of the whole run (counted
+    from 0 just before it, read just after) and of each section (the
+    bench's own per-section counts) must equal what the sections need;
+    the JSON line must hold every metric with a positive number.
+    Each kernel's time per launch at the bench's shape is set beside its
+    bound.  ``bench_streams``: the 32 streams of the bench corpus.
+    Returns (the line's object, the launches counted per kernel, the
+    probe's among them)."""
+    from qoaudio_tpu_torch import bench, bitstream
+    from qoaudio_tpu_torch.ops import cuda_decode
+
+    sizes = bench.Sizes()
+    calls = 2 * sizes.iters + 2  # warm, timed end to end; the handle: warm, timed
+    frames = [spc // 5120 for spc, _, _ in sizes.saturated_spec]
+    full = sum(1 for f0 in range(0, max(frames), 64) if min(f0 + 64, max(frames)) <= min(frames))
+    windows = (sizes.iters + 1) * sizes.chain_launches + 2  # timed windows, two gates
+    want = {
+        # the gate's launch, then the warm and the timed windows
+        "decode": {"decode": (sizes.iters + 1) * sizes.decode_launches + 1, "masked": 0,
+                   "full": 0},
+        "transcode": {k: v * calls for k, v in transcode_launches(
+            [[bitstream.parse_file_arrays(s) for s in bench_streams]]).items()
+            if k != "host_pair_files"},
+        "encode": {"decode": 0, "masked": windows, "full": windows},
+        "saturated": {"decode": calls, "masked": (-(-max(frames) // 64) - full) * calls,
+                      "full": full * calls},
+    }
+    reset_launch_counts()
+    cuda_decode.variant_launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(dev)
+    seen = launch_counts()
+    seen_variants = cuda_decode.variant_launches
+    require(rc == 0, f"bench.main returned {rc}")
+    lines = out.getvalue().strip().splitlines()
+    require(len(lines) == 1, f"the bench printed {len(lines)} lines on stdout")
+    result = json.loads(lines[0])
+    require(result["launches"] == want,
+            f"bench launches per section {result['launches']}, expected {want}")
+    total = {k: sum(sec[k] for sec in want.values()) for k in ("decode", "masked", "full")}
+    require(seen == {**total, "host_pair_files": 0},
+            f"bench launches {seen}, expected {total} and no host-pair file")
+    require(seen_variants == 0, f"the bench launched the store probe {seen_variants} times")
+    for k in total:
+        require(seen[k] > 0, f"kernel {k} never launched by the bench")
+    require(result["metric"] == "encode_msamples_per_sec_per_chip"
+            and result["unit"] == "Msamples/s", f"bench headline is {result['metric']!r}")
+    require(result["device"] == card, f"bench device {result['device']!r}, the card is {card!r}")
+    for key in ("value", "vs_baseline", "decode_e2e_msps", "decode_stream_msps",
+                "decode_mono_e2e_msps", "encode_single_file_e2e_msps", "decode_batched_msps",
+                "transcode_hbm_msps", "transcode_hbm_vs_baseline", "transcode_chip_msps",
+                "encode_masked_msps", "transcode_saturated_msps",
+                "transcode_saturated_chip_msps", "decode_vs_baseline"):
+        require(isinstance(result.get(key), (int, float)) and result[key] > 0,
+                f"bench metric {key} is {result.get(key)!r}")
+    say(f"phase 8: bench passed every parity gate; launches per section {result['launches']}; "
+        f"headline {result['value']} Msamples/s (full encode, {sizes.n_chains} chains x "
+        f"{sizes.frames} frames), masked {result['encode_masked_msps']}, decode "
+        f"{result['decode_batched_msps']}, transcode e2e {result['transcode_hbm_msps']} "
+        f"(device side {result['transcode_chip_msps']}), saturated "
+        f"{result['transcode_saturated_msps']} ({result['transcode_saturated_chip_msps']}) "
+        f"[{card}]")
+    # each kernel at the bench's shape beside its bound (ms per launch from
+    # the line's median rates)
+    W = 256
+    samples = sizes.frames * 5120 * sizes.n_chains
+    shapes = [("decode", f"{sizes.decode_windows}x{sizes.decode_chains}",
+               sizes.decode_windows * 20 * sizes.decode_chains / result["decode_batched_msps"] / 1e3,
+               sizes.decode_windows * 20,
+               decode_bound(sizes.decode_windows, sizes.decode_chains, fn_ops, card_peaks))]
+    for key, metric in (("full", "value"), ("masked", "encode_masked_msps")):
+        shapes.append((key, f"{sizes.frames}x{W}x20x{sizes.n_chains}",
+                       samples / result[metric] / 1e3, sizes.frames * W * 20,
+                       encode_bound(key == "masked", sizes.frames, W, sizes.n_chains,
+                                    sizes.frames * W * sizes.n_chains, fn_ops, card_peaks)))
+    for key, shape, ms, steps, b in shapes:
+        say(f"phase 8: bench {key} kernel at {shape}: {ms:.4f} ms a launch (median), "
+            f"{ms * 1e6 / steps:.2f} ns per dependent step, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}), {ms / b['bound_ms']:.1f}x [{card}]")
+    # the bounds of the encode launches the transcode experiments time
+    # (experiments.transcode_profile prints their times): 64-frame chunks
+    for N in (48, 256, 512):
+        bounds = [encode_bound(m, 64, W, N, 64 * W * N, fn_ops, card_peaks) for m in (False, True)]
+        say(f"phase 8: bound of one 64x{W}x20x{N} encode launch: full "
+            f"{bounds[0]['bound_ms']:.4f} ms, masked {bounds[1]['bound_ms']:.4f} ms "
+            f"({bounds[0]['bound_by']})")
+    return result, {**{k: seen[k] for k in total}, "variants": seen_variants}
+
+
+def phase_entry(dev):
+    """The flagship step once on ``dev`` (one masked launch, equal to the
+    plain version on the same arguments), then the dry run on 4 shards
+    over the cards present, all six steps."""
+    import torch
+
+    from qoaudio_tpu_torch import graft_entry
+    from qoaudio_tpu_torch.ops import encode as plain_encode
+    from qoaudio_tpu_torch.parallel import Mesh
+
+    fn, args = graft_entry.entry(dev)
+    reset_launch_counts()
+    words, state = fn(*args)
+    torch.cuda.synchronize()
+    want_counts = {"decode": 0, "masked": 1, "full": 0, "host_pair_files": 0}
+    require(launch_counts() == want_counts,
+            f"entry: launches {launch_counts()}, expected {want_counts}")
+    p_state, _, p_words = plain_encode.encode_frames(*args)
+    err = max_abs_err([words, state], [p_words, p_state])
+    require(err == 0, f"entry: kernel != plain version (max err {err})")
+    say(f"phase 9: entry() on {words.device}: words {tuple(words.shape)}, state "
+        f"{tuple(state.shape)} == the plain version, one masked launch")
+    n = 4
+    want_counts = dryrun_launches(n, Mesh((dev,) * n))
+    reset_launch_counts()
+    graft_entry.dryrun_multichip(n)
+    seen = launch_counts()
+    require(seen == want_counts, f"dry run: launches {seen}, expected {want_counts}")
+    say(f"phase 9: dryrun_multichip({n}) passed all six steps; launches {seen}, as its "
+        "inputs need")
+
+
+def dryrun_launches(n: int, mesh) -> dict:
+    """Exact launches of ``graft_entry.dryrun_multichip`` over ``mesh`` (of
+    ``n`` shards), worked out from its inputs: steps 1-4 launch once per
+    shard (one frame, partial windows: the masked encoder), step 5 and step
+    6's two mesh calls once per device group of the longest-chain-first
+    partition, step 6's one-device call once, and its handle once more;
+    a call whose corpus the cost model cuts makes these launches per
+    bucket."""
+    from qoaudio_tpu_torch import bitstream, codec, graft_entry
+    from qoaudio_tpu_torch.parallel import Mesh
+
+    def parse(files):
+        return [bitstream.parse_file_arrays(codec.encode_all(p, d, backend="native"))
+                for p, d in files]
+
+    def transcode(parsed, m, bucket):
+        segs = graft_entry._buckets(m, parsed) if bucket else None
+        groups = []
+        for seg in segs or [range(len(parsed))]:
+            sub = [parsed[i] for i in seg]
+            groups += [[sub[j] for j in g] for g in balanced_groups(sub, m.size)]
+        return transcode_launches(groups)
+
+    _, files, mixed = graft_entry.dryrun_inputs(n)
+    small, mix = parse(files), parse(mixed)
+    one = Mesh(mesh.devices[:1])
+    calls = [{"decode": n, "masked": 2 * n},  # steps 2, 1 and 3
+             {"decode": n},  # step 4
+             transcode(small, mesh, True),  # step 5
+             transcode(mix, mesh, False), transcode(mix, mesh, True),
+             transcode(mix, one, True), transcode(mix, one, True)]  # the call, the handle
+    return {k: sum(c.get(k, 0) for c in calls)
+            for k in ("decode", "masked", "full", "host_pair_files")}
+
+
+def phase_profile(dev, tag, streams):
+    """The transcode pipeline's stages on the smoke corpus, between CUDA
+    events; every launch of the handle lies inside a stage."""
+    from qoaudio_tpu_torch import bitstream
+    from qoaudio_tpu_torch.experiments import transcode_profile
+
+    iters = 5
+    reset_launch_counts()
+    r = transcode_profile.profile_streams(streams, dev, iters)
+    counted = launch_counts()
+    want = transcode_launches([[bitstream.parse_file_arrays(s) for s in streams]])
+    seen = {"decode": r["calls"]["decode"], "masked": r["calls"]["encode_masked"],
+            "full": r["calls"]["encode_full"], "host_pair_files": 0}
+    require(seen == want, f"profile: stage calls {r['calls']}, the handle launches {want}")
+    # the gated call and the handle's re-run; one warm run, ``iters`` with
+    # stamps and ``iters`` without
+    runs = 2 + 1 + 2 * iters
+    require(counted == {k: v * runs for k, v in want.items()},
+            f"profile: launches {counted}, expected {runs} runs of {want}")
+    for stage in transcode_profile.STAGES:
+        require(r[stage] > 0, f"profile: stage {stage} took {r[stage]} s")
+    say(f"phase 10: transcode stages, smoke corpus, median of {iters}; {runs} runs of the "
+        f"handle, launches {counted}: "
+        f"{transcode_profile.describe(r)} {tag}")
 
 
 def phase7(dev, tag, fn_ops, card) -> dict:

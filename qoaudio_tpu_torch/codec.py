@@ -34,11 +34,10 @@ from .errors import (
     InvalidSamples,
     NoSamples,
 )
-from .ops import cuda_decode
+from .ops.decode import decode_chain_arrays
 from .parallel import corpus
 from .reference import decode_batch_np, encode_all_py
 from .types import DecodedQoa, QoaDesc
-from .utils.transfer import fetch_arrays, put_arrays
 
 BACKENDS = ("auto", "native", "numpy", "torch")
 
@@ -116,10 +115,7 @@ def _decode_frame_records(records, device) -> np.ndarray:
         words_be[: rec.n_windows, cols] = rec.slice_words.byteswap()
         state[0:4, cols] = rec.lms_history.T
         state[4:8, cols] = rec.lms_weights.T
-    words_d, state_d = put_arrays([words_be.view(np.int64), state], device)
-    dec = cuda_decode.decode_chains_words(state_d, words_d)
-    (pcm,) = fetch_arrays([corpus.frame_major(dec, F, C)])
-    return pcm
+    return decode_chain_arrays(words_be, state, F, C, device)
 
 
 def _decode_torch(data: bytes, device) -> DecodedQoa:

@@ -29,10 +29,9 @@ import os
 import statistics
 import sys
 
-import numpy as np
 import torch
 
-from .. import bitstream
+from .. import bench
 from ..ops import cuda_decode, layout
 from ..ops import decode as plain
 
@@ -45,14 +44,11 @@ WARMUP, ITERS = 2, 10
 
 def tiled_chains(fixture: str = FIXTURE, windows: int = WINDOWS,
                  chains: int = CHAINS):
-    """The fixture's chains tiled to ``chains`` columns: (state int32
-    (8, N), raw big-endian words int64 (W, N)) as numpy."""
+    """The fixture's chains tiled to ``chains`` columns
+    (``bench.tiled_chains`` of the file): (state int32 (8, N), raw
+    big-endian words int64 (W, N)) as numpy."""
     with open(fixture, "rb") as f:
-        pa = bitstream.parse_file_arrays(f.read())
-    idx = np.arange(chains) % pa.words_be.shape[1]
-    words_be = np.ascontiguousarray(pa.words_be[:windows][:, idx]).view(np.int64)
-    state = np.ascontiguousarray(pa.state[:, idx])
-    return state, words_be
+        return bench.tiled_chains(f.read(), windows, chains)
 
 
 def check(mode: str, out: torch.Tensor, ref: torch.Tensor, codes: torch.Tensor) -> bool:

@@ -1,7 +1,8 @@
 """Plain PyTorch LMS decoder over frame x channel chains.
 
-Port of ``qoaudio_tpu/ops/decode.py`` (``decode_chains``), and of the
-store-shape probe ``experiments/pallas_decode_variants.py::run_variant``
+Port of ``qoaudio_tpu/ops/decode.py`` (``decode_chains``,
+``decode_batch``), and of the store-shape probe
+``experiments/pallas_decode_variants.py::run_variant``
 (``decode_chains_variant``).  One code path
 serves CPU and CUDA tensors: int32 add and mul wrap in torch, ``>>`` on
 int32 is arithmetic, and a sum over the 4 LMS taps is taken mod 2^32 —
@@ -9,16 +10,23 @@ the reference's ``wrapping_*`` and shift semantics (src/lib.rs:797-828).
 Dequantization is a lookup in the format's table, once per window, since
 it does not depend on the LMS.  These are the plain versions that the CUDA
 kernel in ``csrc/qoa_decode.cu`` is checked against, and what a CPU
-tensor runs.
+tensor runs.  ``decode_batch`` and ``decode_chain_arrays`` take host arrays
+to a device and back through the kernel's wrapper (``cuda_decode``): the
+kernel on a CUDA device, the plain version on the CPU.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
+from .. import bitstream as bs
 from .. import format as fmt
+from ..utils.transfer import fetch_arrays, put_arrays
 
-from .layout import be_to_logical, unpack_words
+from .layout import be_to_logical, frame_major, unpack_words
 
 _I32 = torch.int32
 
@@ -63,6 +71,48 @@ def decode_chains_words(state: torch.Tensor,
     """
     sf, codes = unpack_words(be_to_logical(words_be))
     return decode_chains(state, sf, codes)
+
+
+def decode_chain_arrays(words_be: np.ndarray, state: np.ndarray, F: int,
+                        C: int, device) -> np.ndarray:
+    """Host chain arrays, decoded in ONE launch on ``device``.
+
+    words_be: uint64 (W, N) raw big-endian slice words, state: int32
+    (8, N), chain = frame * C + channel; chains past ``F * C`` are padding
+    and dropped.  Returns the frames' untrimmed interleaved PCM, int16
+    (F, W*20, C), on the host.
+    """
+    from . import cuda_decode  # it imports this module for the plain version
+
+    words_d, state_d = put_arrays([words_be.view(np.int64), state], device)
+    dec = cuda_decode.decode_chains_words(state_d, words_d)
+    (pcm,) = fetch_arrays([frame_major(dec[:, :, : F * C], F, C)])
+    return pcm
+
+
+def decode_batch(batch: bs.FrameBatch, device,
+                 pad_chains_to: Optional[int] = None,
+                 pad_windows_to: Optional[int] = None) -> np.ndarray:
+    """Decode a host FrameBatch on ``device`` -> int16 (F, W*20, C),
+    untrimmed.
+
+    ``pad_chains_to`` / ``pad_windows_to`` pad the chain / window axes with
+    zero words (one launch shape for files of different sizes); the padded
+    chains and trailing padded windows are dropped.
+    """
+    F, W, C = batch.sf.shape
+    N = F * C
+    Np = max(pad_chains_to or N, N)
+    Wp = max(pad_windows_to or W, W)
+    words_be, state = bs.batch_chain_arrays(batch)
+    if (Wp, Np) != (W, N):
+        words_p = np.zeros((Wp, Np), np.uint64)
+        words_p[:W, :N] = words_be
+        state_p = np.zeros((8, Np), np.int32)
+        state_p[:, :N] = state
+        words_be, state = words_p, state_p
+    pcm = decode_chain_arrays(words_be, state, F, C, device)
+    return pcm[:, : W * fmt.QOA_SLICE_LEN]
 
 
 VARIANT_MODES = ("v0", "nostore", "storeonly", "stack", "pack32")

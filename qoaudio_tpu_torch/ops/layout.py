@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import format as fmt
+
 _MASK32 = 0xFFFFFFFF
 
 
@@ -60,3 +62,14 @@ def unpack_words(logical: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     shifts = torch.arange(57, -3, -3, device=logical.device, dtype=torch.int64)
     codes = (logical[:, None, :] >> shifts[None, :, None]) & 7
     return sf, codes.to(torch.int32)
+
+
+def frame_major(dec: torch.Tensor, F: int, C: int) -> torch.Tensor:
+    """Decoded chains (W, 20, F*C), chain = frame * C + channel -> the
+    frames' untrimmed interleaved PCM (F, W*20, C), on the same device."""
+    n_win = dec.shape[0]
+    return (
+        dec.reshape(n_win, fmt.QOA_SLICE_LEN, F, C)
+        .permute(2, 0, 1, 3)
+        .reshape(F, n_win * fmt.QOA_SLICE_LEN, C)
+    )

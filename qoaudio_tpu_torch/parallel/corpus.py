@@ -49,6 +49,7 @@ from .. import codec
 from .. import format as fmt
 from ..errors import InvalidSamples
 from ..ops import cuda_decode, cuda_encode
+from ..ops.layout import frame_major
 from ..types import DecodedQoa, QoaDesc
 from ..utils.transfer import fetch_arrays, put_arrays
 from .mesh import (Mesh, decode_chains_sharded, encode_frames_sharded,
@@ -135,17 +136,6 @@ def _stage_decode(parsed, multiple: int = 1):
         n += p.n_frames * p.channels
     words_be, state = _stage_words_be(parsed, offs, W, round_up(n, multiple))
     return words_be, state, offs
-
-
-def frame_major(dec: torch.Tensor, F: int, C: int) -> torch.Tensor:
-    """Decoded chains (W, 20, F*C), chain = frame * C + channel -> the
-    frames' untrimmed interleaved PCM (F, W*20, C), on the same device."""
-    n_win = dec.shape[0]
-    return (
-        dec.reshape(n_win, fmt.QOA_SLICE_LEN, F, C)
-        .permute(2, 0, 1, 3)
-        .reshape(F, n_win * fmt.QOA_SLICE_LEN, C)
-    )
 
 
 def _interleave_file(dec_sub: torch.Tensor, p) -> torch.Tensor:

@@ -1,12 +1,15 @@
 """Timing helpers that know about CUDA's asynchronous launches.
 
-Port of ``qoaudio_tpu/utils/timing.py`` (``Stopwatch``, ``bench_fn``).  On
-a CUDA device, a host clock read right after a launch measures only the
-enqueue, so both synchronise, and device time comes from CUDA events.
+Port of ``qoaudio_tpu/utils/timing.py`` (``Stopwatch``, ``bench_fn``,
+``profiler_trace``).  On a CUDA device, a host clock read right after a
+launch measures only the enqueue, so the timers synchronise, and device
+time comes from CUDA events.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Optional
 
@@ -73,18 +76,18 @@ class Stopwatch:
         return n_samples / self.elapsed / 1e6 if self.elapsed else float("inf")
 
 
-def bench_fn(fn, *args, device=None, warmup: int = 1, iters: int = 3):
-    """Time ``fn(*args)`` after ``warmup`` calls; returns (best_seconds,
-    result).  On a CUDA ``device`` each call is timed by CUDA events
-    around it (device time of the launches it makes, host gaps included);
-    elsewhere by the host clock."""
+def time_calls(fn, *args, device=None, warmup: int = 1, iters: int = 5):
+    """Time ``iters`` calls of ``fn(*args)`` after ``warmup`` calls; returns
+    (seconds of each timed call, last result).  On a CUDA ``device`` each
+    call is timed by CUDA events around it (device time of the launches it
+    makes, host gaps included); elsewhere by the host clock."""
     result = None
     cuda = _is_cuda(device)
     for _ in range(warmup):
         result = fn(*args)
     if cuda:
         torch.cuda.synchronize(device)
-    best = float("inf")
+    times = []
     for _ in range(iters):
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
@@ -93,9 +96,42 @@ def bench_fn(fn, *args, device=None, warmup: int = 1, iters: int = 3):
             result = fn(*args)
             end.record()
             end.synchronize()
-            best = min(best, start.elapsed_time(end) / 1e3)
+            times.append(start.elapsed_time(end) / 1e3)
         else:
             t0 = time.perf_counter()
             result = fn(*args)
-            best = min(best, time.perf_counter() - t0)
-    return best, result
+            times.append(time.perf_counter() - t0)
+    return times, result
+
+
+def bench_fn(fn, *args, device=None, warmup: int = 1, iters: int = 3):
+    """:func:`time_calls`, reduced to (best_seconds, result)."""
+    times, result = time_calls(fn, *args, device=device, warmup=warmup, iters=iters)
+    return min(times), result
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """Optionally wrap a block in a ``torch.profiler`` trace.
+
+    ``None`` or empty: a no-op.  Otherwise CPU activities and, with a CUDA
+    device present, CUDA activities are recorded, and a Chrome trace
+    (``trace-<pid>.json``) is written into ``log_dir`` when the block
+    ends.  Yields the profiler (``key_averages()`` sums by operation), or
+    None when off."""
+    if not log_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, f"trace-{os.getpid()}.json"))

@@ -319,3 +319,94 @@ def test_mesh_over_every_card(cuda):
              for k, d in enumerate(mesh.devices)]
     for k, a in enumerate(fetch_arrays(parts)):
         assert (a == k).all()
+
+
+def _small_bench_sizes():
+    from qoaudio_tpu_torch import bench
+
+    return bench.Sizes(
+        n_chains=256, frames=2, plain_frames=1, chain_launches=2,
+        decode_windows=64, decode_chains=4096, parity_chains=256, decode_launches=3,
+        transcode_spec=bench.bench_spec(4), saturated_spec=bench.saturated_spec(8, 4),
+        spot_files=(0, 7), host_iters=2, iters=2)
+
+
+def test_bench_sections_on_card(cuda, fixture_bytes, capsys):
+    """The port's bench at a reduced size on the card: every parity gate
+    passes on the kernels, each section launches exactly what it needs,
+    and the JSON line names the card."""
+    import json
+
+    from qoaudio_tpu_torch import bench
+
+    sizes = _small_bench_sizes()
+    assert bench.main(cuda, sizes) == 0
+    cap = capsys.readouterr()
+    (line,) = cap.out.strip().splitlines()
+    res = json.loads(line)
+    calls = 2 * sizes.iters + 2
+    windows = (sizes.iters + 1) * sizes.chain_launches + 2
+    assert res["launches"] == {
+        "decode": {"decode": (sizes.iters + 1) * sizes.decode_launches + 1, "masked": 0,
+                   "full": 0},
+        # 4 files of 64-256 frames: a full first chunk, three masked ones
+        "transcode": {"decode": calls, "masked": 3 * calls, "full": calls},
+        "encode": {"decode": 0, "masked": windows, "full": windows},
+        "saturated": {"decode": calls, "masked": 0, "full": calls},
+    }
+    assert res["device"].startswith(torch.cuda.get_device_name(0))
+    for key in ("value", "encode_masked_msps", "decode_batched_msps", "transcode_hbm_msps",
+                "transcode_chip_msps", "transcode_saturated_msps",
+                "transcode_saturated_chip_msps", "decode_e2e_msps"):
+        assert res[key] > 0, key
+    assert cap.err.count("parity gate:") == 4
+
+
+def test_bench_gate_catches_a_wrong_kernel_on_card(cuda, fixture_bytes, monkeypatch, capsys):
+    from qoaudio_tpu_torch import bench
+
+    fn = cuda_encode.encode_frames_full
+
+    def off_by_one_bit(state, samples):
+        new_state, snaps, words = fn(state, samples)
+        return new_state, snaps, words ^ 1
+
+    monkeypatch.setattr(cuda_encode, "encode_frames_full", off_by_one_bit)
+    with pytest.raises(SystemExit, match="PARITY FAILURE"):
+        bench.main(cuda, _small_bench_sizes())
+    assert capsys.readouterr().out == ""
+
+
+def test_entry_and_dryrun_on_card(cuda, capsys):
+    """The flagship step launches the masked kernel once and equals the
+    plain version; the dry run passes its six steps on a mesh that repeats
+    the cards present, every shard's output on its own device."""
+    from qoaudio_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry(cuda)
+    assert all(a.device.type == "cuda" for a in args)
+    before = cuda_encode.masked_launches
+    words, state = fn(*args)
+    torch.cuda.synchronize()
+    assert cuda_encode.masked_launches == before + 1
+    p_state, _, p_words = plain_encode.encode_frames(*args)
+    assert torch.equal(words, p_words) and torch.equal(state, p_state)
+    dec, masked = cuda_decode.launches, cuda_encode.masked_launches
+    graft_entry.dryrun_multichip(3)
+    assert cuda_decode.launches > dec and cuda_encode.masked_launches > masked
+    assert "dryrun_multichip OK: 3-device mesh" in capsys.readouterr().out
+
+
+def test_transcode_profile_and_calibration_on_card(cuda, fixture_bytes):
+    from qoaudio_tpu_torch import bench
+    from qoaudio_tpu_torch.experiments import decode_calibration, transcode_profile
+
+    r = transcode_profile.run(cuda, spec=bench.bench_spec(4), iters=2)
+    assert r["calls"] == {"decode": 1, "relayout": 4, "lens": 3, "encode_full": 1,
+                          "encode_masked": 3}
+    assert r["steps"]["encode_full"] == 64 * 5120 and r["steps"]["encode_masked"] == 192 * 5120
+    assert all(r[s] > 0 for s in transcode_profile.STAGES)
+    assert abs(r["total"] - r["handle"]) < 0.2 * r["handle"]
+    c = decode_calibration.run(cuda, bench.Sizes(decode_windows=64, decode_chains=4096),
+                               ks=(1, 4, 8), reps=2)
+    assert c["slope_s"] > 0 and all(row["device_s"] > 0 for row in c["rows"])

@@ -261,3 +261,55 @@ def test_plain_decode_ragged_shapes_match_native(W, N):
     wl, st = _int32_weight_words(W + N, W, N)
     got = decode_chains_words(torch.from_numpy(st), _torch_words_be(wl))
     assert np.array_equal(got.numpy(), native.decode_chains(wl.byteswap(), st))
+
+
+# ---------------------------------------------------------------------------
+# decode_batch: a host FrameBatch through the device and back
+# ---------------------------------------------------------------------------
+
+def _batches(fixture_bytes, n_frames):
+    """The same frames stacked by each package's own bitstream module."""
+    from qoaudio_tpu_torch import bitstream as port_bs
+
+    frames = bs.parse_file(fixture_bytes).frames
+    port_frames = port_bs.parse_file(fixture_bytes).frames
+    n = len(frames) if n_frames is None else n_frames
+    return bs.stack_frames(frames[:n]), port_bs.stack_frames(port_frames[:n])
+
+
+@pytest.mark.parametrize("n_frames, pads", [
+    (4, {}),  # tests/test_jax_decode.py::test_decode_kernel_vs_oracle_fixture_head
+    (None, {"pad_chains_to": 1024}),  # ::test_decode_kernel_vs_oracle_fixture_full
+    (3, {"pad_chains_to": 7, "pad_windows_to": 300}),
+    (2, {"pad_chains_to": 1, "pad_windows_to": 1}),  # pads below the batch do nothing
+])
+def test_decode_batch_matches_jax(fixture_bytes, n_frames, pads):
+    from qoaudio_tpu import reference as jax_ref
+    from qoaudio_tpu.ops.decode import decode_batch as jax_decode_batch
+    from qoaudio_tpu_torch.ops.decode import decode_batch
+
+    jax_batch, port_batch = _batches(fixture_bytes, n_frames)
+    got = decode_batch(port_batch, "cpu", **pads)
+    want = jax_decode_batch(jax_batch, **pads)
+    assert got.dtype == np.int16 and got.shape == want.shape
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, jax_ref.decode_batch_np(jax_batch))
+
+
+def test_decode_frame_records_and_decode_batch_share_one_body(fixture_bytes, monkeypatch):
+    """The codec's per-record staging and ``decode_batch`` reach the
+    kernel's wrapper through ``decode_chain_arrays``: the same PCM, one
+    wrapper call each."""
+    from qoaudio_tpu_torch import bitstream as port_bs
+    from qoaudio_tpu_torch import codec
+    from qoaudio_tpu_torch.ops import decode as ops_decode
+
+    calls = []
+    fn = cuda_decode.decode_chains_words
+    monkeypatch.setattr(cuda_decode, "decode_chains_words",
+                        lambda st, w: calls.append(tuple(w.shape)) or fn(st, w))
+    records = port_bs.parse_file(fixture_bytes).frames[-3:]  # the last frame is short
+    a = codec._decode_frame_records(records, "cpu")
+    b = ops_decode.decode_batch(port_bs.stack_frames(records), "cpu")
+    assert calls == [(256, 6), (256, 6)]
+    assert a.shape == (3, 5120, 2) and np.array_equal(a, b)

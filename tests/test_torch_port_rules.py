@@ -266,6 +266,39 @@ def test_timing_helpers_on_cpu():
     assert result == 42 and best >= 0
 
 
+def test_time_calls_on_cpu():
+    seen = []
+    times, result = timing.time_calls(lambda a: seen.append(a) or a * 2, 21, device="cpu",
+                                      warmup=2, iters=3)
+    assert result == 42 and len(times) == 3 and len(seen) == 5
+    assert all(t >= 0 for t in times)
+
+
+def test_profiler_trace_off_is_a_no_op(tmp_path):
+    for off in (None, ""):
+        with timing.profiler_trace(off) as prof:
+            assert prof is None
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_profiler_trace_leaves_a_chrome_trace(tmp_path):
+    import json
+
+    log_dir = tmp_path / "traces" / "run"  # made on demand
+    with timing.profiler_trace(str(log_dir)) as prof:
+        torch.ones(64).sum()
+    (trace,) = list(log_dir.iterdir())
+    assert trace.name.startswith("trace-") and trace.suffix == ".json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any("sum" in e.get("name", "") for e in events)
+    assert any("sum" in e.key for e in prof.key_averages())
+    # a block that raises still writes its trace
+    with pytest.raises(ZeroDivisionError):
+        with timing.profiler_trace(str(tmp_path / "failed")):
+            1 / 0
+    assert len(list((tmp_path / "failed").iterdir())) == 1
+
+
 def test_codec_is_the_ports_own():
     import qoaudio_tpu
     import qoaudio_tpu_torch
