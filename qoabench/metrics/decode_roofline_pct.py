@@ -1,0 +1,15 @@
+"""The decode kernel's share of its bound: the least time the window's
+decode work could take (``qoabench/roofline.py``, from the calls' shapes)
+over the device time of the ``qoa_decode`` kernels, in %."""
+
+from qoabench import roofline
+from qoabench.trace import Trace
+
+
+def read(t: Trace):
+    spent = sum(o.end - o.start for o in t.ops if o.kind == "decode") / 1e6
+    if not spent:
+        return None
+    bound = sum(roofline.decode_bound_s(w.samples, w.frame_chains, t.sm_clock_mhz)
+                for w in t.work)
+    return 100.0 * bound / spent
