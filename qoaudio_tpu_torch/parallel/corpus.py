@@ -27,6 +27,14 @@ nothing moves from one to the other.  Streams the device path cannot take
 sizes) go to the host decode -> encode pair of the port's own codec (the
 native engine, else ``"torch"`` on the call's device), which gives the
 same bytes; the module integer ``host_pair_files`` counts them.
+
+Under a running ``torch.profiler`` each host stage of a call is a span
+(``utils/timing.span``), once per stage and sub-call, never per file:
+``qoa.parse``, ``qoa.stage`` (host arrays: file groups, buckets, the
+transcode staging, the encode checks, layout and cube fill),
+``qoa.upload`` (``put_arrays``), ``qoa.pipeline`` (queuing the device
+work), ``qoa.fetch`` with ``qoa.wait`` inside (``fetch_arrays``) and
+``qoa.assemble`` (the files' bytes).
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from ..errors import InvalidSamples
 from ..ops import cuda_decode, cuda_encode
 from ..ops.layout import frame_major
 from ..types import DecodedQoa, QoaDesc
+from ..utils.timing import span
 from ..utils.transfer import fetch_arrays, put_arrays
 from .mesh import (Mesh, decode_chains_sharded, encode_frames_sharded,
                    gather_chains, round_up, shard_chain_arrays)
@@ -161,44 +170,47 @@ def _encode_sharded(files, mesh: Mesh, chunk_frames: int, state=None):
     encoder's initial state).  Returns host arrays (state (8, N), snaps
     (F, 8, N), words (F, W, N) uint64 logical) and each file's first chain.
     """
-    for pcm, desc in files:
-        codec._validate_desc(desc)
-        if np.asarray(pcm).size != desc.samples * desc.channels:
-            raise InvalidSamples()
+    with span("qoa.stage"):
+        for pcm, desc in files:
+            codec._validate_desc(desc)
+            if np.asarray(pcm).size != desc.samples * desc.channels:
+                raise InvalidSamples()
 
-    layouts = [codec.layout_pcm(pcm, d.channels, d.samples) for pcm, d in files]
-    F_max = max(F for _, _, F in layouts)
-    # a corpus of sub-frame clips scans only the windows it has; trailing
-    # zero-length windows pass LMS through, so dropping them is exact
-    W_use = max(
-        fmt.QOA_SLICES_PER_FRAME if F > 1 else -(-d.samples // fmt.QOA_SLICE_LEN)
-        for (_, d), (_, _, F) in zip(files, layouts)
-    )
-    offsets = []
-    n = 0
-    for _, d in files:
-        offsets.append(n)
-        n += d.channels
-    N = n
-    Np = round_up(N, mesh.size)  # padding chains run on lens 0, then drop
-    f_full = min(d.samples // fmt.QOA_FRAME_LEN for _, d in files)
+        layouts = [codec.layout_pcm(pcm, d.channels, d.samples) for pcm, d in files]
+        F_max = max(F for _, _, F in layouts)
+        # a corpus of sub-frame clips scans only the windows it has; trailing
+        # zero-length windows pass LMS through, so dropping them is exact
+        W_use = max(
+            fmt.QOA_SLICES_PER_FRAME if F > 1 else -(-d.samples // fmt.QOA_SLICE_LEN)
+            for (_, d), (_, _, F) in zip(files, layouts)
+        )
+        offsets = []
+        n = 0
+        for _, d in files:
+            offsets.append(n)
+            n += d.channels
+        N = n
+        Np = round_up(N, mesh.size)  # padding chains run on lens 0, then drop
+        f_full = min(d.samples // fmt.QOA_FRAME_LEN for _, d in files)
 
-    start = codec.initial_encoder_state(0, Np)
-    if state is not None:
-        start[:, :N] = state
-    (states,) = shard_chain_arrays(mesh, start)
+        start = codec.initial_encoder_state(0, Np)
+        if state is not None:
+            start[:, :N] = state
+        (states,) = shard_chain_arrays(mesh, start)
     snaps, words = [], []  # per chunk, the per-shard device tensors
     for f0 in range(0, F_max, chunk_frames):
         f1 = min(f0 + chunk_frames, F_max)
-        cx = np.zeros((f1 - f0, W_use, fmt.QOA_SLICE_LEN, Np), np.int16)
-        cl = np.zeros((f1 - f0, W_use, Np), np.int32)
-        for (_, d), (xf, lf, F), off in zip(files, layouts, offsets):
-            k = min(F, f1) - f0
-            if k > 0:
-                cx[:k, :, :, off : off + d.channels] = xf[f0 : f0 + k, :W_use]
-                cl[:k, :, off : off + d.channels] = lf[f0 : f0 + k, :W_use, None]
-        states, s, w = encode_frames_sharded(
-            mesh, states, cx, None if f1 <= f_full else cl)
+        with span("qoa.stage"):
+            cx = np.zeros((f1 - f0, W_use, fmt.QOA_SLICE_LEN, Np), np.int16)
+            cl = np.zeros((f1 - f0, W_use, Np), np.int32)
+            for (_, d), (xf, lf, F), off in zip(files, layouts, offsets):
+                k = min(F, f1) - f0
+                if k > 0:
+                    cx[:k, :, :, off : off + d.channels] = xf[f0 : f0 + k, :W_use]
+                    cl[:k, :, off : off + d.channels] = lf[f0 : f0 + k, :W_use, None]
+        with span("qoa.pipeline"):
+            states, s, w = encode_frames_sharded(
+                mesh, states, cx, None if f1 <= f_full else cl)
         snaps.append(s)
         words.append(w)
     per_shard = range(mesh.size)
@@ -244,17 +256,18 @@ def batch_encode(
         return []
     _, snaps, words, offsets = _encode_sharded(files, on, chunk_frames)
     out: List[bytes] = []
-    for (_, d), off in zip(files, offsets):
-        C = d.channels
-        out.append(
-            bs.assemble_stream_bytes(
-                C,
-                d.sample_rate,
-                d.samples,
-                np.ascontiguousarray(snaps[:, :, off : off + C]),
-                np.ascontiguousarray(words[:, :, off : off + C]),
+    with span("qoa.assemble"):
+        for (_, d), off in zip(files, offsets):
+            C = d.channels
+            out.append(
+                bs.assemble_stream_bytes(
+                    C,
+                    d.sample_rate,
+                    d.samples,
+                    np.ascontiguousarray(snaps[:, :, off : off + C]),
+                    np.ascontiguousarray(words[:, :, off : off + C]),
+                )
             )
-        )
     return out
 
 
@@ -272,7 +285,8 @@ def batch_decode(streams: Sequence[bytes], device=None,
     on = _placement(device, mesh)
     if not streams:
         return []
-    parsed = [bs.parse_file_arrays(d) for d in streams]
+    with span("qoa.parse"):
+        parsed = [bs.parse_file_arrays(d) for d in streams]
     outs: List[Optional[DecodedQoa]] = [None] * len(streams)
     good = []
     for i, (d, p) in enumerate(zip(streams, parsed)):
@@ -520,19 +534,20 @@ def _assemble_transcode(parsed, W_enc: int, sp: np.ndarray,
     wp = wp.view(np.uint64)
     out: List[bytes] = []
     r = 0
-    for p in parsed:
-        F_i, C = p.n_frames, p.channels
-        n = F_i * C
-        out.append(
-            bs.assemble_stream_bytes(
-                C,
-                p.sample_rate,
-                int(p.samples_per_frame.sum()),
-                sp[r : r + n].reshape(C, F_i, 8).transpose(1, 2, 0),
-                wp[r : r + n].reshape(C, F_i, W_enc).transpose(1, 2, 0),
+    with span("qoa.assemble"):
+        for p in parsed:
+            F_i, C = p.n_frames, p.channels
+            n = F_i * C
+            out.append(
+                bs.assemble_stream_bytes(
+                    C,
+                    p.sample_rate,
+                    int(p.samples_per_frame.sum()),
+                    sp[r : r + n].reshape(C, F_i, 8).transpose(1, 2, 0),
+                    wp[r : r + n].reshape(C, F_i, W_enc).transpose(1, 2, 0),
+                )
             )
-        )
-        r += n
+            r += n
     return out
 
 
@@ -597,10 +612,15 @@ def _transcode_groups(parsed, mesh: Mesh, chunk_frames: int):
     """Every device group's pipeline issued before any fetch, then one
     fetch and the assembly.  Returns (bytes per file, handle per group)."""
     runs = []
-    for dev, idx in zip(mesh.devices, _file_groups(parsed, mesh.size)):
+    with span("qoa.stage"):
+        groups = _file_groups(parsed, mesh.size)
+    for dev, idx in zip(mesh.devices, groups):
         if idx:  # a device with no files launches nothing
-            h = _stage_transcode([parsed[i] for i in idx], dev, chunk_frames)
-            runs.append((idx, h, h()))
+            with span("qoa.stage"):
+                h = _stage_transcode([parsed[i] for i in idx], dev, chunk_frames)
+            with span("qoa.pipeline"):
+                packed = h()
+            runs.append((idx, h, packed))
     fetched = fetch_arrays([t for _, _, packed in runs for t in packed])
     outs: List[Optional[bytes]] = [None] * len(parsed)
     for k, (idx, h, _) in enumerate(runs):
@@ -634,10 +654,11 @@ def _transcode(streams, parsed, mesh: Mesh, chunk_frames: int, bucket,
         return outs, handle
 
     if bucket:
-        e_mult, overhead = _bucket_model(mesh)
-        segs = _length_buckets([p.n_frames for p in parsed],
-                               [p.channels for p in parsed], e_mult,
-                               chunk_frames, overhead)
+        with span("qoa.stage"):
+            e_mult, overhead = _bucket_model(mesh)
+            segs = _length_buckets([p.n_frames for p in parsed],
+                                   [p.channels for p in parsed], e_mult,
+                                   chunk_frames, overhead)
         if segs is not None:
             outs = [None] * len(streams)
             handles = []
@@ -696,7 +717,8 @@ def batch_transcode(
     if not streams:
         outs, handle = [], None
     else:
-        parsed = [bs.parse_file_arrays(d) for d in streams]
+        with span("qoa.parse"):
+            parsed = [bs.parse_file_arrays(d) for d in streams]
         outs, handle = _transcode(streams, parsed, on, chunk_frames, bucket,
                                   one_device=mesh is None)
     return (outs, handle) if return_fused_handle else outs

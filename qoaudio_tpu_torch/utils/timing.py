@@ -3,7 +3,8 @@
 Port of ``qoaudio_tpu/utils/timing.py`` (``Stopwatch``, ``bench_fn``,
 ``profiler_trace``).  On a CUDA device, a host clock read right after a
 launch measures only the enqueue, so the timers synchronise, and device
-time comes from CUDA events.
+time comes from CUDA events.  ``span`` names a host stage in a
+``torch.profiler`` trace, and costs next to nothing when no profiler runs.
 """
 
 from __future__ import annotations
@@ -108,6 +109,22 @@ def bench_fn(fn, *args, device=None, warmup: int = 1, iters: int = 3):
     """:func:`time_calls`, reduced to (best_seconds, result)."""
     times, result = time_calls(fn, *args, device=device, warmup=warmup, iters=iters)
     return min(times), result
+
+
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context that records the block as ``name`` in a running
+    ``torch.profiler`` (``record_function``: on the trace's clock, beside
+    the device activity, nested in the span that encloses it); with no
+    profiler running, one shared no-op context: a flag check, where
+    entering ``record_function`` costs far more.  Spans mark stages, once
+    per sub-call, never once per file."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
