@@ -9,7 +9,9 @@ a whole corpus runs in a few kernel launches:
   shard on a mesh);
 * ``batch_encode``    — all files' channels as encode chains, frames in
   launches of ``chunk_frames`` with the LMS carried on the device (per
-  shard, on its own device, on a mesh);
+  shard, on its own device, on a mesh); each file's PCM is uploaded once,
+  as it is interleaved, and laid out for the encoder on the device (one
+  gather a chunk);
 * ``batch_transcode`` — decode, then relayout ON THE DEVICE into the
   encoder's layout (one ``index_select`` plus a ``permute``), then encode:
   the PCM never leaves device memory, and only compressed words and LMS
@@ -31,7 +33,7 @@ same bytes; the module integer ``host_pair_files`` counts them.
 Under a running ``torch.profiler`` each host stage of a call is a span
 (``utils/timing.span``), once per stage and sub-call, never per file:
 ``qoa.parse``, ``qoa.stage`` (host arrays: file groups, buckets, the
-transcode staging, the encode checks, layout and cube fill),
+transcode staging, the encode checks and the flat PCM buffer),
 ``qoa.upload`` (``put_arrays``), ``qoa.pipeline`` (queuing the device
 work), ``qoa.fetch`` with ``qoa.wait`` inside (``fetch_arrays``) and
 ``qoa.assemble`` (the files' bytes).
@@ -76,6 +78,8 @@ host_pair_files = 0  # files that took the host decode -> encode pair
 _BUCKET_OVERHEAD = 8192.0
 _BUCKET_MIN_GAIN = 0.75
 _CUDA_BUCKET_OVERHEAD_WAVES = 1.0
+# index elements ``_encode_input`` builds at once: 256 MB of int64
+_GATHER_ELEMENTS = 1 << 25
 
 
 @dataclasses.dataclass
@@ -159,16 +163,80 @@ def _interleave_file(dec_sub: torch.Tensor, p) -> torch.Tensor:
     return torch.cat([arr[:-1, : int(spf[0])].reshape(-1), last])
 
 
+def _stage_encode_pcm(files, offsets, mesh: Mesh, Np: int):
+    """Every file's interleaved PCM, in input order, copied once into one
+    int16 host buffer (pinned on a CUDA mesh), each file followed by as
+    many zeros as it has channels.  Shard k's chains read one slice of
+    whole files, uploaded to its device as it is.  ``offsets``: each
+    file's first chain.  Returns the per-shard device slices and the int64
+    (3, Np) (base, stride, samples) of every chain, base taken from the
+    start of its shard's slice: chain j reads its sample t at
+    base_j + min(t, samples_j) * stride_j, a zero from its end on.
+    Padding chains read their slice's last zero."""
+    sizes = [d.samples * d.channels for _, d in files]
+    starts = np.cumsum([0] + [n + d.channels for n, (_, d) in zip(sizes, files)])
+    total = int(starts[-1])
+    buf = torch.empty(total, dtype=torch.int16,
+                      pin_memory=mesh.devices[0].type == "cuda")
+    host = buf.numpy()
+    vec = np.zeros((3, Np), np.int64)  # base, stride, samples; padding: 0
+    for (pcm, d), s, n, j in zip(files, starts, sizes, offsets):
+        a = np.asarray(pcm)
+        np.copyto(host[s : s + n].reshape(a.shape), a, casting="unsafe")
+        host[s + n : s + n + d.channels] = 0
+        vec[0, j : j + d.channels] = s + np.arange(d.channels)
+        vec[1:, j : j + d.channels] = [[d.channels], [d.samples]]
+    N = offsets[-1] + files[-1][1].channels
+    k = Np // mesh.size
+    cuts = []
+    for c0 in range(0, Np, k):  # shard by shard: its chains c0 <= j < c0 + k
+        c1 = min(c0 + k, N)
+        if c0 < c1:
+            lo = int(starts[bisect.bisect_right(offsets, c0) - 1])
+            hi = int(starts[bisect.bisect_right(offsets, c1 - 1)])
+        else:  # padding only
+            lo, hi = total - 1, total
+        vec[0, c0:c1] -= lo
+        vec[0, max(c0, N) : c0 + k] = hi - lo - 1
+        cuts.append((lo, hi))
+    with span("qoa.upload"):
+        flats = [buf[lo:hi].to(dev, non_blocking=True)
+                 for (lo, hi), dev in zip(cuts, mesh.devices)]
+    return flats, vec
+
+
+def _encode_input(flat: torch.Tensor, vec: torch.Tensor, f0: int, f1: int,
+                  W_use: int) -> torch.Tensor:
+    """Frames f0 <= f < f1 of one shard's encoder input, int16
+    (f1 - f0, W_use, 20, n), gathered on the device from its flat PCM:
+    x[f, w, k, j] = flat[base_j + min(t, samples_j) * stride_j] for
+    t = f*5120 + w*20 + k, zero from chain j's end on.  The index is
+    built on the device, a few frames at a time."""
+    base, stride, samples = vec
+    x = torch.empty((f1 - f0, W_use, fmt.QOA_SLICE_LEN, vec.shape[1]),
+                    dtype=torch.int16, device=flat.device)
+    t = torch.arange(f0 * fmt.QOA_FRAME_LEN, f1 * fmt.QOA_FRAME_LEN,
+                     device=flat.device).view(
+        f1 - f0, fmt.QOA_SLICES_PER_FRAME, fmt.QOA_SLICE_LEN)[:, :W_use, :, None]
+    step = max(1, _GATHER_ELEMENTS // x[0].numel())
+    for a in range(0, f1 - f0, step):
+        idx = torch.minimum(t[a : a + step], samples).mul_(stride).add_(base)
+        torch.index_select(flat, 0, idx.view(-1), out=x[a : a + step].view(-1))
+    return x
+
+
 def _encode_sharded(files, mesh: Mesh, chunk_frames: int, state=None):
     """Encode many PCM streams, each channel one chain, the chain axis
     padded to a multiple of the mesh size and sharded over it.
 
-    Each chunk of ``chunk_frames`` frames is staged on the host (never the
-    whole corpus) and every shard runs it on its own device, carrying its
-    LMS there; leading all-full chunks take the full-window kernel.
-    ``state`` is the int32 (8, N) LMS the chains start from (default: the
-    encoder's initial state).  Returns host arrays (state (8, N), snaps
-    (F, 8, N), words (F, W, N) uint64 logical) and each file's first chain.
+    The files' PCM is copied once into one flat buffer and each shard's
+    slice uploaded once; each chunk of ``chunk_frames`` frames is laid out
+    for the encoder on the shard's own device (``_encode_input``), which
+    runs it, carrying its LMS there; leading all-full chunks take the
+    full-window kernel.  ``state`` is the int32 (8, N) LMS the chains
+    start from (default: the encoder's initial state).  Returns host
+    arrays (state (8, N), snaps (F, 8, N), words (F, W, N) uint64 logical)
+    and each file's first chain.
     """
     with span("qoa.stage"):
         for pcm, desc in files:
@@ -176,13 +244,13 @@ def _encode_sharded(files, mesh: Mesh, chunk_frames: int, state=None):
             if np.asarray(pcm).size != desc.samples * desc.channels:
                 raise InvalidSamples()
 
-        layouts = [codec.layout_pcm(pcm, d.channels, d.samples) for pcm, d in files]
-        F_max = max(F for _, _, F in layouts)
+        F_max = max(-(-d.samples // fmt.QOA_FRAME_LEN) for _, d in files)
         # a corpus of sub-frame clips scans only the windows it has; trailing
         # zero-length windows pass LMS through, so dropping them is exact
         W_use = max(
-            fmt.QOA_SLICES_PER_FRAME if F > 1 else -(-d.samples // fmt.QOA_SLICE_LEN)
-            for (_, d), (_, _, F) in zip(files, layouts)
+            fmt.QOA_SLICES_PER_FRAME if d.samples > fmt.QOA_FRAME_LEN
+            else -(-d.samples // fmt.QOA_SLICE_LEN)
+            for _, d in files
         )
         offsets = []
         n = 0
@@ -196,21 +264,16 @@ def _encode_sharded(files, mesh: Mesh, chunk_frames: int, state=None):
         start = codec.initial_encoder_state(0, Np)
         if state is not None:
             start[:, :N] = state
-        (states,) = shard_chain_arrays(mesh, start)
+        flats, vec = _stage_encode_pcm(files, offsets, mesh, Np)
+        states, vecs = shard_chain_arrays(mesh, start, vec)
     snaps, words = [], []  # per chunk, the per-shard device tensors
     for f0 in range(0, F_max, chunk_frames):
         f1 = min(f0 + chunk_frames, F_max)
-        with span("qoa.stage"):
-            cx = np.zeros((f1 - f0, W_use, fmt.QOA_SLICE_LEN, Np), np.int16)
-            cl = np.zeros((f1 - f0, W_use, Np), np.int32)
-            for (_, d), (xf, lf, F), off in zip(files, layouts, offsets):
-                k = min(F, f1) - f0
-                if k > 0:
-                    cx[:k, :, :, off : off + d.channels] = xf[f0 : f0 + k, :W_use]
-                    cl[:k, :, off : off + d.channels] = lf[f0 : f0 + k, :W_use, None]
         with span("qoa.pipeline"):
-            states, s, w = encode_frames_sharded(
-                mesh, states, cx, None if f1 <= f_full else cl)
+            xs = [_encode_input(x, v, f0, f1, W_use) for x, v in zip(flats, vecs)]
+            lens = None if f1 <= f_full else [
+                _transcode_lens(v[2], f0, f1, W_use) for v in vecs]
+            states, s, w = encode_frames_sharded(mesh, states, xs, lens)
         snaps.append(s)
         words.append(w)
     per_shard = range(mesh.size)

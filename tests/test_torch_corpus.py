@@ -91,6 +91,114 @@ def test_batch_encode_full_chunks_and_tails():
     assert got == [codec.encode_all(p, d, backend="native") for p, d in files]
 
 
+def _as_is(pcm, desc):
+    return pcm, desc
+
+
+def _strided(pcm, desc):
+    """Every other element of a buffer twice the size: no contiguous input."""
+    wide = np.zeros(2 * pcm.size, np.int16)
+    wide[::2] = pcm
+    return wide[::2], desc
+
+
+def _fortran(pcm, desc):
+    """(T, C) in column-major order: channel-major memory, interleaved logic."""
+    return np.asfortranarray(pcm.reshape(desc.samples, desc.channels)), desc
+
+
+# (name, [(samples a channel, channels)], input transform, chunk_frames)
+RELAYOUT_EDGES = [
+    # mono, stereo and 8-channel over two frames, ragged last windows
+    ("channels", [(5120 + 77, 8), (1234, 2), (6001, 1)], _as_is, 64),
+    # all sub-frame: W_use < 256, a clip shorter than a window, ragged tails
+    ("sub_frame", [(300, 1), (41, 2), (19, 1), (260, 8)], _as_is, 64),
+    # int32 and float64 input, whose int16 cast the encoder applies
+    ("int32", [(2_000, 2), (777, 1)], lambda p, d: (p.astype(np.int32), d), 64),
+    ("float64", [(1_500, 1), (333, 2)], lambda p, d: (p.astype(np.float64), d), 64),
+    # inputs in no contiguous interleaved layout
+    ("strided", [(900, 2), (420, 8)], _strided, 64),
+    ("fortran", [(5120 + 1, 2), (64, 8)], _fortran, 64),
+    # one frame a launch across three frames: full chunks, then masked ones
+    ("chunk1", [(5120 * 2 + 50, 1), (5120 * 3, 2)], _as_is, 1),
+    ("chunk1_ragged", [(5120 * 2 + 9, 2), (5120 + 3, 8), (700, 1)], _as_is, 1),
+]
+
+
+@pytest.mark.parametrize("name, shapes, form, chunk", RELAYOUT_EDGES,
+                         ids=[e[0] for e in RELAYOUT_EDGES])
+def test_batch_encode_relayout_edges(name, shapes, form, chunk):
+    """The on-device relayout over the corpora it has edges for: the bytes
+    of the JAX package's batch_encode and of the native engine."""
+    if not native.available():
+        pytest.skip("native engine unavailable")
+    pcms = [make_noise(n, c, seed=300 + i, amplitude=20000)
+            for i, (n, c) in enumerate(shapes)]
+    descs = [QoaDesc(c, 44100, n) for n, c in shapes]
+    files = [form(p, d) for p, d in zip(pcms, descs)]
+    got = corpus.batch_encode(files, "cpu", chunk_frames=chunk)
+    assert got == [codec.encode_all(p, d, backend="native") for p, d in zip(pcms, descs)]
+    assert got == jax_corpus.batch_encode(files, chunk_frames=chunk)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("f0, f1", [(0, 3), (1, 3), (2, 3)])
+def test_encode_input_equals_the_host_cube(k, f0, f1):
+    """One chunk's device-built input and lens, shard by shard, equal the
+    chain-minor cube and lens filled from ``layout_pcm`` element for
+    element, zeros and padding chains included."""
+    import torch
+
+    from qoaudio_tpu_torch import codec as tcodec
+    from qoaudio_tpu_torch.parallel import mesh as tmesh
+    from qoaudio_tpu_torch.types import QoaDesc as TDesc
+
+    # 13 chains: on 3 shards the last holds two padding chains beside real ones
+    shapes = [(5120 * 2 + 133, 2), (5120 + 1, 1), (61, 8), (5120 * 3, 2)]
+    files = [(make_noise(n, c, seed=i), TDesc(c, 44100, n)) for i, (n, c) in enumerate(shapes)]
+    N = sum(c for _, c in shapes)
+    m = tmesh.make_mesh(devices=("cpu",) * k)
+    Np = tmesh.round_up(N, k)
+    W = fmt.QOA_SLICES_PER_FRAME
+
+    cx = np.zeros((f1 - f0, W, fmt.QOA_SLICE_LEN, Np), np.int16)
+    cl = np.zeros((f1 - f0, W, Np), np.int32)
+    off = 0
+    for pcm, d in files:
+        xf, lf, F = tcodec.layout_pcm(pcm, d.channels, d.samples)
+        n = min(F, f1) - f0
+        if n > 0:
+            cx[:n, :, :, off : off + d.channels] = xf[f0 : f0 + n]
+            cl[:n, :, off : off + d.channels] = lf[f0 : f0 + n, :, None]
+        off += d.channels
+
+    flats, vec = corpus._stage_encode_pcm(
+        files, np.cumsum([0] + [c for _, c in shapes[:-1]]).tolist(), m, Np)
+    assert len(flats) == k
+    s = Np // k
+    vecs = [torch.from_numpy(vec[:, i * s : (i + 1) * s]) for i in range(k)]
+    x = torch.cat([corpus._encode_input(f, v, f0, f1, W) for f, v in zip(flats, vecs)], -1)
+    lens = torch.cat([corpus._transcode_lens(v[2], f0, f1, W) for v in vecs], -1)
+    assert x.dtype == torch.int16 and np.array_equal(x.numpy(), cx)
+    assert lens.dtype == torch.int32 and np.array_equal(lens.numpy(), cl)
+
+
+def test_encode_input_builds_its_index_a_few_frames_at_a_time(monkeypatch):
+    """With room for one frame's index a gather, the chunk's input is the
+    same as with room for all of it."""
+    import torch
+
+    from qoaudio_tpu_torch.parallel import mesh as tmesh
+    from qoaudio_tpu_torch.types import QoaDesc as TDesc
+
+    files = [(make_noise(5120 * 3 + 11, 2, seed=5), TDesc(2, 44100, 5120 * 3 + 11))]
+    flats, vec = corpus._stage_encode_pcm(files, [0], tmesh.make_mesh(devices=("cpu",)), 2)
+    v = torch.from_numpy(vec)
+    whole = corpus._encode_input(flats[0], v, 0, 4, fmt.QOA_SLICES_PER_FRAME)
+    monkeypatch.setattr(corpus, "_GATHER_ELEMENTS", 1)
+    assert torch.equal(corpus._encode_input(flats[0], v, 0, 4, fmt.QOA_SLICES_PER_FRAME), whole)
+
+
 def test_batch_transcode_chunks_carry_state_and_use_full_path(monkeypatch):
     """chunk_frames=1: the LMS carries across launches on the device, the
     leading all-full frames take the full-window path, the tail frame the

@@ -288,6 +288,41 @@ def test_mesh_transcode_on_one_card(cuda):
     assert got == want
 
 
+def test_batch_encode_fold_relayout_on_card(cuda):
+    """An ESC-50-shaped fold of 40 mono 5-s clips plus a stereo and an
+    8-channel file: ``batch_encode`` on the card (and over the card listed
+    twice) gives the native engine's bytes, and the chunk's input built on
+    the card equals the chain-minor cube filled from ``layout_pcm``."""
+    from qoaudio_tpu_torch.parallel import make_mesh, mesh as tmesh
+
+    if not native.available():
+        pytest.skip("native engine unavailable")
+    rng = np.random.default_rng(14)
+    shapes = [(220_500, 1)] * 40 + [(100_003, 2), (30_011, 8)]
+    files = [(rng.integers(-20000, 20000, size=n * c).astype(np.int16),
+              types.QoaDesc(c, 44100, n)) for n, c in shapes]
+    want = [codec.encode_all(p, d, backend="native") for p, d in files]
+    assert corpus.batch_encode(files, cuda) == want
+    assert corpus.batch_encode(files, mesh=make_mesh(devices=("cuda:0",) * 2)) == want
+
+    Np, F, W = 50, 44, 256
+    cx = np.zeros((F, W, 20, Np), np.int16)
+    cl = np.zeros((F, W, Np), np.int32)
+    off = 0
+    for pcm, d in files:
+        xf, lf, Fi = codec.layout_pcm(pcm, d.channels, d.samples)
+        cx[:Fi, :, :, off : off + d.channels] = xf
+        cl[:Fi, :, off : off + d.channels] = lf[:, :, None]
+        off += d.channels
+    flats, vec = corpus._stage_encode_pcm(
+        files, np.cumsum([0] + [c for _, c in shapes[:-1]]).tolist(), tmesh.Mesh((cuda,)), Np)
+    v = torch.from_numpy(vec).to(cuda)
+    x = corpus._encode_input(flats[0], v, 0, F, W)
+    assert x.device.type == "cuda"
+    assert np.array_equal(x.cpu().numpy(), cx)
+    assert np.array_equal(corpus._transcode_lens(v[2], 0, F, W).cpu().numpy(), cl)
+
+
 def test_mesh_over_every_card(cuda):
     """make_mesh() over two or more distinct cards: every card gets files,
     each card its own decode launch, and the three corpus calls equal the

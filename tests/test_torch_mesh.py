@@ -212,6 +212,50 @@ def test_more_devices_than_files(counted):
         assert _same_pcm(g, codec.decode_all(s, backend="native"))
 
 
+# (name, shards, [(samples a channel, channels)], chunk_frames)
+SHARD_EDGES = [
+    # chains 0-2 | 3-4 and a padding chain: the stereo file's channels on two shards
+    ("stereo_split", 2, [(300, 1), (450, 1), (700, 2), (90, 1)], 64),
+    # 2 chains over 4 shards: two shards hold only padding chains
+    ("more_shards_than_files", 4, [(120, 2)], 64),
+    ("more_shards_than_chains", 5, [(300, 1), (450, 2)], 64),
+    # an 8-channel file over three shards, frame by frame
+    ("eight_channels_split", 3, [(5120 + 31, 8), (61, 1)], 1),
+]
+
+
+@pytest.mark.parametrize("name, k, shapes, chunk", SHARD_EDGES, ids=[e[0] for e in SHARD_EDGES])
+def test_batch_encode_shard_edges(name, k, shapes, chunk):
+    """Each shard gets the whole of every file its chains touch, a file
+    split over shards goes to each of them whole, and the bytes are the
+    native engine's and the unsharded port's."""
+    if not native.available():
+        pytest.skip("native engine unavailable")
+    from qoaudio_tpu_torch.types import QoaDesc as TDesc
+
+    pcms = [make_noise(n, c, seed=90 + i) for i, (n, c) in enumerate(shapes)]
+    files = [(p, TDesc(c, 44100, n)) for p, (n, c) in zip(pcms, shapes)]
+    want = [codec.encode_all(p, QoaDesc(c, 44100, n), backend="native")
+            for p, (n, c) in zip(pcms, shapes)]
+    m = mesh.make_mesh(devices=("cpu",) * k)
+    assert corpus.batch_encode(files, mesh=m, chunk_frames=chunk) == want
+    assert corpus.batch_encode(files, "cpu", chunk_frames=chunk) == want
+
+    channels = [p.reshape(n, c)[:, i] for p, (n, c) in zip(pcms, shapes) for i in range(c)]
+    Np = mesh.round_up(len(channels), k)
+    flats, vec = corpus._stage_encode_pcm(
+        files, np.cumsum([0] + [c for _, c in shapes[:-1]]).tolist(), m, Np)
+    s = Np // k
+    for j in range(Np):
+        flat = flats[j // s].numpy()
+        base, stride, samples = (int(v) for v in vec[:, j])
+        if j < len(channels):
+            assert np.array_equal(flat[base : base + samples * stride : stride], channels[j])
+        else:
+            assert (stride, samples) == (0, 0)
+        assert flat[base + samples * stride] == 0  # where the chain's samples end
+
+
 def test_multi_frame_file_carries_state_per_shard():
     """A two-frame file in a 3-shard mesh: full first frame, masked tail,
     with chunk_frames=1 so the LMS carries across launches on each shard."""
