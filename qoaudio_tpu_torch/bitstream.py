@@ -306,9 +306,16 @@ def parse_file_geometry(data: bytes) -> Optional[FileGeometry]:
         data, dtype=">u8", count=F_full * frame_words, offset=fmt.QOA_HEADER_SIZE
     ).reshape(F_full, frame_words)[:, 0]
 
-    # all full frames must share the exact header word (same geometry)
-    if not bool((hdrs == hdrs[0]).all()):
+    # all full frames must share the exact header word (same geometry); a
+    # last frame whose size is a full frame's but whose samples are fewer
+    # (5,101-5,119 of 5,120: 256 windows all the same) is the tail
+    if not bool((hdrs[:-1] == hdrs[0]).all()):
         return None
+    if hdrs[-1] != hdrs[0]:
+        if tail_bytes:
+            return None
+        F_full -= 1
+        tail_bytes = frame_bytes
 
     # final short frame, if any
     tail = None
@@ -327,6 +334,8 @@ def parse_file_geometry(data: bytes) -> Optional[FileGeometry]:
             # breaks the uniform-stride indexing downstream callers assume
             # (decode_range, seek): general walk
             return None
+        if tail_bytes == frame_bytes and tail.samples_per_channel == spc0:
+            return None  # a full frame whose header differs in its size field
 
     return FileGeometry(
         total_samples=total_samples,

@@ -43,12 +43,15 @@ def _tune_allocator() -> None:
 
     glibc serves >=128 KB allocations via mmap and unmaps them on free, so
     every one-shot decode/encode call pays soft page faults re-touching its
-    ~10-20 MB of staging/output buffers.  Raising M_MMAP_THRESHOLD and
-    M_TRIM_THRESHOLD once per process lets the heap recycle those buffers
-    fault-free — measured 1.16-1.59x on the host-tier e2e paths (decode_all
-    9.7 -> 6.1 ms at the fixture, measured for ``qoaudio_tpu``'s host tier).  Process-global by
-    nature, so: applied only when the native engine is actually used,
-    ``QOA_NO_MALLOPT=1`` opts out, and non-glibc platforms skip silently.
+    ~10-20 MB of staging/output buffers.  Raising M_MMAP_THRESHOLD once
+    per process lets the heap recycle those buffers fault-free — measured
+    1.16-1.59x on the host-tier e2e paths (decode_all 9.7 -> 6.1 ms at the
+    fixture, measured for ``qoaudio_tpu``'s host tier).  The heap is never
+    trimmed either: a corpus call's per-file arrays and output bytes run
+    to GBs, and each call that freed them back to the kernel would fault
+    them all in again on the next.  Process-global by nature, so: applied
+    only when the native engine is actually used, ``QOA_NO_MALLOPT=1``
+    opts out, and non-glibc platforms skip silently.
     """
     global _allocator_tuned
     if _allocator_tuned or os.environ.get("QOA_NO_MALLOPT"):
@@ -57,7 +60,7 @@ def _tune_allocator() -> None:
     try:
         libc = ctypes.CDLL(None)
         libc.mallopt(-3, 1 << 26)  # M_MMAP_THRESHOLD
-        libc.mallopt(-1, 1 << 26)  # M_TRIM_THRESHOLD
+        libc.mallopt(-1, -1)  # M_TRIM_THRESHOLD: never trim
     except (OSError, AttributeError):
         pass
 

@@ -32,10 +32,12 @@ same bytes; the module integer ``host_pair_files`` counts them.
 
 Under a running ``torch.profiler`` each host stage of a call is a span
 (``utils/timing.span``), once per stage and sub-call, never per file:
-``qoa.parse``, ``qoa.stage`` (host arrays: file groups, buckets, the
-transcode staging, the encode checks and the flat PCM buffer),
-``qoa.upload`` (``put_arrays``), ``qoa.pipeline`` (queuing the device
-work), ``qoa.fetch`` with ``qoa.wait`` inside (``fetch_arrays``) and
+``qoa.parse``, ``qoa.host_pair`` (the eligibility split and the files
+that take the host pair), ``qoa.stage`` (host arrays: file groups, the
+transcode staging, the encode checks and the flat PCM buffer) with
+``qoa.bucket`` inside (the length-bucket choice), ``qoa.upload``
+(``put_arrays``), ``qoa.pipeline`` (queuing the device work),
+``qoa.fetch`` with ``qoa.wait`` inside (``fetch_arrays``) and
 ``qoa.assemble`` (the files' bytes).
 """
 
@@ -123,31 +125,39 @@ def _placement(device, mesh) -> Mesh:
     return mesh if mesh is not None else Mesh((torch.device(device),))
 
 
-def _stage_words_be(parsed, offs, W: int, N: int):
+def _stage_words_be(parsed, offs, W: int, N: int, pin: bool = False):
     """Per-file raw BE words and LMS -> dense (words_be int64 (W, N),
     state int32 (8, N)); chains past the files' stay zero.  The words stay
     big-endian: the decode kernel byteswaps them itself, so the upload is
-    the compressed payload."""
-    words_be = np.zeros((W, N), np.uint64)
-    state = np.zeros((8, N), np.int32)
+    the compressed payload.  With ``pin`` the two are torch tensors in
+    pinned memory, which the caching host allocator hands out again call
+    after call, uploaded as they are; else numpy arrays."""
+    words_t = torch.empty((W, N), dtype=torch.int64, pin_memory=pin)
+    state_t = torch.empty((8, N), dtype=torch.int32, pin_memory=pin)
+    words_be, state = words_t.numpy().view(np.uint64), state_t.numpy()
+    n = 0
     for p, off in zip(parsed, offs):
         k = p.n_frames * p.channels
         words_be[: p.max_windows, off : off + k] = p.words_be
+        words_be[p.max_windows :, off : off + k] = 0
         state[:, off : off + k] = p.state
-    return words_be.view(np.int64), state
+        n = off + k
+    words_be[:, n:] = 0
+    state[:, n:] = 0
+    return (words_t, state_t) if pin else (words_be.view(np.int64), state)
 
 
-def _stage_decode(parsed, multiple: int = 1):
+def _stage_decode(parsed, multiple: int = 1, pin: bool = False):
     """All files' decode chains -> (words_be, state) host arrays with the
     chain axis padded to a multiple of ``multiple``, and each file's first
-    chain."""
+    chain; pinned tensors with ``pin`` (:func:`_stage_words_be`)."""
     W = max(p.max_windows for p in parsed)
     offs = []
     n = 0
     for p in parsed:
         offs.append(n)
         n += p.n_frames * p.channels
-    words_be, state = _stage_words_be(parsed, offs, W, round_up(n, multiple))
+    words_be, state = _stage_words_be(parsed, offs, W, round_up(n, multiple), pin)
     return words_be, state, offs
 
 
@@ -352,12 +362,13 @@ def batch_decode(streams: Sequence[bytes], device=None,
         parsed = [bs.parse_file_arrays(d) for d in streams]
     outs: List[Optional[DecodedQoa]] = [None] * len(streams)
     good = []
-    for i, (d, p) in enumerate(zip(streams, parsed)):
-        if p is None:
-            host_pair_files += 1
-            outs[i] = codec.decode_all(d, device=on.devices[0])
-        else:
-            good.append(i)
+    with span("qoa.host_pair"):
+        for i, (d, p) in enumerate(zip(streams, parsed)):
+            if p is None:
+                host_pair_files += 1
+                outs[i] = codec.decode_all(d, device=on.devices[0])
+            else:
+                good.append(i)
     if good:
         for i, o in zip(good, decode_parsed([parsed[i] for i in good], mesh=on)):
             outs[i] = o
@@ -618,7 +629,8 @@ def _stage_transcode(parsed, device, chunk_frames: int) -> TranscodeFusedHandle:
     """Step 1 of a transcode: stage the files' words and the relayout on
     the host and upload them to ``device``; returns the handle onto
     step 2."""
-    words_be, dstate, doffs = _stage_decode(parsed)
+    words_be, dstate, doffs = _stage_decode(
+        parsed, pin=torch.device(device).type == "cuda")
     eoffs = []
     n = 0
     for p in parsed:
@@ -694,49 +706,39 @@ def _transcode_groups(parsed, mesh: Mesh, chunk_frames: int):
 
 def _transcode(streams, parsed, mesh: Mesh, chunk_frames: int, bucket,
                one_device: bool):
-    """``batch_transcode`` on parsed streams -> (bytes per file, handle)."""
+    """``batch_transcode`` on parsed streams -> (bytes per file, handle).
+    Only the streams the device path cannot take pay the host pair; the
+    rest still run the device pipeline, split into length buckets where
+    ``bucket`` is set and the cost model finds a split worth it."""
     global host_pair_files
-    if not all(_device_eligible(p) for p in parsed):
-        # only the ineligible streams pay the host pair; the rest of the
-        # corpus still runs the device pipeline
-        outs: List[Optional[bytes]] = [None] * len(streams)
-        good = []
+    outs: List[Optional[bytes]] = [None] * len(streams)
+    good = []
+    with span("qoa.host_pair"):
         for i, (d, p) in enumerate(zip(streams, parsed)):
             if _device_eligible(p):
                 good.append(i)
             else:
                 host_pair_files += 1
                 outs[i] = _host_pair(d, mesh.devices[0])
-        handle = None
-        if good:
-            sub, handle = _transcode([streams[i] for i in good],
-                                     [parsed[i] for i in good], mesh,
-                                     chunk_frames, bucket, one_device)
-            for i, data in zip(good, sub):
-                outs[i] = data
-        return outs, handle
-
+    if not good:
+        return outs, None
+    segs = None
     if bucket:
-        with span("qoa.stage"):
+        with span("qoa.stage"), span("qoa.bucket"):
             e_mult, overhead = _bucket_model(mesh)
-            segs = _length_buckets([p.n_frames for p in parsed],
-                                   [p.channels for p in parsed], e_mult,
+            segs = _length_buckets([parsed[i].n_frames for i in good],
+                                   [parsed[i].channels for i in good], e_mult,
                                    chunk_frames, overhead)
-        if segs is not None:
-            outs = [None] * len(streams)
-            handles = []
-            for seg in segs:
-                sub, h = _transcode([streams[i] for i in seg],
-                                    [parsed[i] for i in seg], mesh,
-                                    chunk_frames, False, one_device)
-                if h is not None:
-                    handles.append(h)
-                for i, data in zip(seg, sub):
-                    outs[i] = data
-            return outs, _CompositeFusedHandle(handles) if handles else None
-
-    outs, handles = _transcode_groups(parsed, mesh, chunk_frames)
-    return outs, handles[0] if one_device else None
+    handles = []
+    for seg in segs or [range(len(good))]:
+        idx = [good[k] for k in seg]
+        sub, hs = _transcode_groups([parsed[i] for i in idx], mesh, chunk_frames)
+        handles.extend(hs)
+        for i, data in zip(idx, sub):
+            outs[i] = data
+    if not one_device:
+        return outs, None
+    return outs, handles[0] if segs is None else _CompositeFusedHandle(handles)
 
 
 def batch_transcode(

@@ -21,13 +21,15 @@ import torch
 from .timing import span
 
 
-def put_arrays(arrays: Sequence[np.ndarray], device) -> list[torch.Tensor]:
-    """numpy arrays -> tensors on ``device``, bit for bit."""
+def put_arrays(arrays: Sequence[np.ndarray | torch.Tensor], device) -> list[torch.Tensor]:
+    """numpy arrays (or host tensors: a pinned one is copied from as it
+    is, so the caching host allocator sees the copy) -> tensors on
+    ``device``, bit for bit."""
     device = torch.device(device)
     outs = []
     with span("qoa.upload"):
         for a in arrays:
-            t = torch.from_numpy(np.ascontiguousarray(a))
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
             if device.type == "cpu":
                 outs.append(t)
             else:

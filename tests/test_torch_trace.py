@@ -2,11 +2,12 @@
 
 Under a CPU ``torch.profiler``, ``batch_transcode`` and ``batch_encode``
 mark each host stage once per sub-call as a ``qoa.<stage>`` span, with
-``qoa.upload`` inside the stage that queues it and ``qoa.wait`` inside
-``qoa.fetch``; the count of spans does not grow with the files.  With no
-profiler running ``span`` hands out one shared no-op context and never
-enters ``record_function``.  The bytes do not depend on the profiler.  The
-corpora are short stereo clips cut from the repo's fixture track.
+``qoa.upload`` inside the stage that queues it, ``qoa.bucket`` inside
+``qoa.stage`` and ``qoa.wait`` inside ``qoa.fetch``; the count of spans
+does not grow with the files.  With no profiler running ``span`` hands
+out one shared no-op context and never enters ``record_function``.  The
+bytes do not depend on the profiler.  The corpora are short stereo clips
+cut from the repo's fixture track.
 """
 
 import collections
@@ -24,8 +25,11 @@ from conftest import FIXTURE_PATH
 
 CLIP = 160  # samples a channel: one frame of 8 windows, cheap on the plain encoder
 STAGES = ("parse", "stage", "upload", "pipeline", "fetch", "wait", "assemble")
+# the transcode's own: the host-pair split and the length-bucket choice
+TRANSCODE_STAGES = STAGES + ("host_pair", "bucket")
 # the span each nested span sits in; the rest sit in no span of the port
-PARENTS = {"qoa.upload": {"qoa.stage", "qoa.pipeline"}, "qoa.wait": {"qoa.fetch"}}
+PARENTS = {"qoa.upload": {"qoa.stage", "qoa.pipeline"}, "qoa.wait": {"qoa.fetch"},
+           "qoa.bucket": {"qoa.stage"}}
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +76,7 @@ def test_transcode_emits_every_stage_span(track):
     _, streams = _clips(track, 4)
     out, found = _traced(lambda: corpus.batch_transcode(streams, "cpu"))
     assert out == streams  # the reference encoder's bytes, decoded and re-encoded
-    _check_tree(found, STAGES)
+    _check_tree(found, TRANSCODE_STAGES)
     assert any(p == "qoa.stage" for n, *_, p in found if n == "qoa.upload")
 
 
