@@ -21,12 +21,15 @@ raises and exits non-zero:
    over all of int32), on a ragged shape (one window, a chain count that
    is no multiple of the block) and on the fixture's chains, each also
    against the native engine; the masked and the full encoder on random
-   windows and from a wrap-regime state;
+   windows and from a wrap-regime state; the stream assembly kernel on an
+   ESC-50 fold's shape (400 mono files of 44 frames), timed beside its
+   byte bound;
 4. the batched corpus path at real size: a 33-file corpus (the bench's
    32-file recipe plus the fixture) through ``batch_transcode``,
    ``batch_decode`` and ``batch_encode`` on ``cuda``; every file
    byte-equal to the native host engine, every kernel launched, no file on
-   the host pair; each kernel against its plain version again on the
+   the host pair; one assembly launch for the transcode and one for the
+   encode; each kernel against its plain version again on the
    inputs the main path gave it (the encoders' first two frames), both
    timed, and the kernel's ns per dependent step; the end-to-end time and
    each entry point's kernel time;
@@ -206,9 +209,28 @@ def kernel_bound(key, args, fn_ops, card) -> dict:
     over the windows with samples)."""
     if key == "decode":
         return decode_bound(*args[1].shape, fn_ops, card)
+    if key == "assemble":
+        return assemble_bound(args[2], card)
     F, W, _, N = args[1].shape
     windows = int((args[2] > 0).sum()) if key == "masked" else F * W * N
     return encode_bound(key == "masked", F, W, N, windows, fn_ops, card)
+
+
+def assemble_bound(table, card) -> dict:
+    """The bound of one assembly launch over the files of ``table`` (its
+    int64 tensor): each slice word (8 B) and LMS value (4 B) read once,
+    each output byte written once; the byte swap and the headers are a
+    few operations a word, far from binding."""
+    from qoaudio_tpu_torch.ops import assemble
+    from qoaudio_tpu_torch.utils import roofline
+
+    t = table.cpu().numpy()
+    C, T = t[assemble.CHANNELS], t[assemble.SAMPLES]
+    n_bytes = int((8 * -(-T // 20) * C + 4 * 8 * t[assemble.FRAMES] * C).sum()
+                  + assemble.stream_bytes(C, T).sum())
+    ms, by = roofline.bound_ms(n_bytes, 0, 0, 0, card)
+    return {"bound_ms": ms, "bound_by": by, "bound_bytes": n_bytes,
+            "bound_alu_ops": 0, "bound_fma_ops": 0, "bound_issued": 0}
 
 
 def variant_bound(mode, W, N, fn_ops, card) -> dict:
@@ -236,6 +258,8 @@ def short_kernel_name(mangled: str) -> str:
     m = re.search(r"qoa_encode_kernelILb(\d)E", mangled)
     if m:
         return "encode<masked>" if m.group(1) == "1" else "encode<full>"
+    if "qoa_assemble_kernel" in mangled:
+        return "assemble"
     return mangled
 
 
@@ -324,7 +348,8 @@ def print_paths(lib_path: str) -> int:
 
 def kernel_wrappers() -> dict:
     """(module, wrapper attribute, plain version) of each kernel."""
-    from qoaudio_tpu_torch.ops import cuda_decode, cuda_encode
+    from qoaudio_tpu_torch.ops import assemble as plain_assemble
+    from qoaudio_tpu_torch.ops import cuda_assemble, cuda_decode, cuda_encode
     from qoaudio_tpu_torch.ops import decode as plain_decode
     from qoaudio_tpu_torch.ops import encode as plain_encode
 
@@ -332,6 +357,7 @@ def kernel_wrappers() -> dict:
         "decode": (cuda_decode, "decode_chains_words", plain_decode.decode_chains_words),
         "masked": (cuda_encode, "encode_frames", plain_encode.encode_frames),
         "full": (cuda_encode, "encode_frames_full", plain_encode.encode_frames_full),
+        "assemble": (cuda_assemble, "assemble_streams", plain_assemble.assemble_streams),
     }
 
 
@@ -398,7 +424,8 @@ def main() -> int:
         return 2
 
     from qoaudio_tpu_torch import bitstream, native
-    from qoaudio_tpu_torch.ops import _build, cuda_decode, cuda_encode
+    from qoaudio_tpu_torch.ops import _build, cuda_assemble, cuda_decode, cuda_encode
+    from qoaudio_tpu_torch.ops import assemble as plain_assemble
     from qoaudio_tpu_torch.ops.decode import VARIANT_MODES
     from qoaudio_tpu_torch.parallel import corpus
     from qoaudio_tpu_torch.utils import roofline
@@ -415,9 +442,12 @@ def main() -> int:
         "full": {"name": "qoa_encode_frames_full", "route": "cuda",
                  "source": "qoaudio_tpu_torch/csrc/qoa_encode.cu",
                  "replaces": "qoaudio_tpu/ops/pallas_encode.py:324"},
+        "assemble": {"name": "qoa_assemble_streams", "route": "cuda",
+                     "source": "qoaudio_tpu_torch/csrc/qoa_assemble.cu",
+                     "replaces": "host assembly (bitstream.assemble_stream_bytes)"},
     }
     for k in kernels.values():
-        k["library_ms"] = None  # no one PyTorch call computes QOA decode or encode
+        k["library_ms"] = None  # no one PyTorch call computes QOA decode, encode or streams
     wrappers = kernel_wrappers()
     max_err = {k: 0.0 for k in kernels}
 
@@ -425,7 +455,7 @@ def main() -> int:
         """Kernel == plain version exactly on these CUDA inputs."""
         mod, attr, plain = wrappers[key]
         got, want = getattr(mod, attr)(*args), plain(*args)
-        if key == "decode":
+        if key in ("decode", "assemble"):
             got, want = (got,), (want,)
         err = max_abs_err(got, want)
         max_err[key] = max(max_err[key], err)
@@ -456,16 +486,18 @@ def main() -> int:
             "earlier process (no ptxas report in this one)")
     else:
         regs = ptxas_registers(_build.ptxas_report)
-        want = len(VARIANT_MODES) * len(cuda_decode.VARIANT_THREADS) + 2  # + 2 encoders
+        # + 2 encoders + the assembly
+        want = len(VARIANT_MODES) * len(cuda_decode.VARIANT_THREADS) + 3
         require(len(regs) == want, f"ptxas reported {sorted(regs)}")
         say("phase 2: ptxas registers (spill bytes): " + ", ".join(
             f"{k} {r} ({sp})" for k, (r, sp) in sorted(regs.items())))
-        for name, (_, spill) in regs.items():  # every decode instantiation, both encoders
+        for name, (_, spill) in regs.items():  # every decode instantiation, every other kernel
             require(spill == 0, f"{name} spills {spill} bytes")
         kernels["decode"]["registers"] = regs[PRODUCTION_DECODE][0]
         say("phase 2: no kernel spills; the production decode "
             f"({PRODUCTION_DECODE}) {regs[PRODUCTION_DECODE][0]} registers, " + ", ".join(
-                f"{name} {regs[name][0]}" for name in ("encode<masked>", "encode<full>")))
+                f"{name} {regs[name][0]}"
+                for name in ("encode<masked>", "encode<full>", "assemble")))
     lib_path = _build.build()
     paths = dependent_paths(lib_path, nvcc)
     for key, c in paths.items():
@@ -546,6 +578,29 @@ def main() -> int:
     say(f"phase 3: masked and full encode kernels == plain from a wrap-regime state, "
         f"F={F} W={W} N={N}")
 
+    # the stream assembly at an ESC-50 fold's shape: 400 mono files of
+    # 220,500 samples (44 frames); snapshots over all of int32, so the
+    # weights truncate
+    F, W, N = 44, 256, 400
+    table, n_bytes, n_frames = plain_assemble.file_table(
+        [1] * N, [44100] * N, [220_500] * N, np.arange(N))
+    fold = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(F, 8, N)
+                                          ).astype(np.int32)).to(dev),
+            torch.from_numpy(rng.integers(-(1 << 63), 1 << 63, size=(F, W, N),
+                                          dtype=np.int64)).to(dev),
+            torch.from_numpy(table).to(dev), n_bytes, n_frames)
+    compare("assemble", *fold, what="an ESC-50 fold's shape")
+    k_s = bench_fn(cuda_assemble.assemble_streams, *fold, device=dev, warmup=2, iters=20)[0]
+    b = assemble_bound(fold[2], card_peaks)
+    kernels["assemble"]["fold_ms"] = k_s * 1e3
+    kernels["assemble"]["fold_bound_ms"] = b["bound_ms"]
+    say(f"phase 3: assembly kernel == plain at an ESC-50 fold's shape ({N} files x {F} "
+        f"frames, {n_bytes} B out): kernel {k_s * 1e3:.4f} ms (best of 20), bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_bytes']} B at "
+        f"{roofline.HBM_BYTES_PER_S:.3e} B/s), {100 * b['bound_ms'] / (k_s * 1e3):.1f}% "
+        f"of the bound {tag}")
+    del fold
+
     # ---- phase 4: the main path at real size ----
     fix_dec, files, streams, want_dec, want_tc, want_enc = smoke_corpus(fixture)
     total = sum(d.samples * d.channels for _, d in files)
@@ -562,14 +617,17 @@ def main() -> int:
     def capture(key, fn):
         def run(*args):
             if key not in captured:
-                captured[key] = tuple(a.clone() for a in args)
+                captured[key] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                      for a in args)
             return fn(*args)
         return run
 
     cuda_decode.launches = 0
     cuda_encode.masked_launches = 0
     cuda_encode.full_launches = 0
+    cuda_assemble.launches = 0
     corpus.host_pair_files = 0
+    corpus.host_assembled_files = 0
     with wrapped(capture):
         with Stopwatch(dev) as sw:
             got_tc = corpus.batch_transcode(streams, dev)
@@ -581,14 +639,18 @@ def main() -> int:
         "decode": cuda_decode.launches,
         "masked": cuda_encode.masked_launches,
         "full": cuda_encode.full_launches,
+        "assemble": cuda_assemble.launches,
     }
     host_pairs = corpus.host_pair_files
     say(f"phase 4: launches decode={counts['decode']} masked={counts['masked']} "
-        f"full={counts['full']}, host_pair_files={host_pairs}")
+        f"full={counts['full']} assemble={counts['assemble']}, "
+        f"host_pair_files={host_pairs}, host_assembled_files={corpus.host_assembled_files}")
     for key, n in counts.items():
         require(n > 0, f"kernel {key} never launched on the main path")
         kernels[key]["launches"] = n
     require(host_pairs == 0, f"{host_pairs} files took the host pair")
+    require(counts["assemble"] == 2 and corpus.host_assembled_files == 0,
+            "one assembly launch a call (transcode, encode) and no file assembled on the host")
 
     bad = [i for i, (g, w) in enumerate(zip(got_tc, want_tc)) if g != w]
     require(not bad, f"batch_transcode != native pair for files {bad}")
@@ -608,7 +670,7 @@ def main() -> int:
     # (the encoders' first frames only: the plain encoder is slow), timed
     require(set(captured) == set(kernels), f"inputs captured only for {sorted(captured)}")
     for key, args in captured.items():
-        if key != "decode":  # state (8, N) stays; samples and lens lose frames
+        if key in ("masked", "full"):  # state (8, N) stays; samples and lens lose frames
             args = tuple(a if a.dim() == 2 else a[:ENCODE_FRAMES_COMPARED].contiguous()
                          for a in args)
         compare(key, *args, what="main-path inputs")
@@ -619,15 +681,18 @@ def main() -> int:
         kernels[key].update(ms=k_s * 1e3, plain_ms=p_s * 1e3, timed_shape=shape,
                             **kernel_bound(key, args, fn_ops, card_peaks))
         k = kernels[key]
-        # the serial chain: W x 20 dependent steps (decode), F x W x 20 (encode)
-        steps = 20 * (args[1].shape[0] if key == "decode" else args[1].shape[0] * args[1].shape[1])
-        k["ns_per_step"] = k_s * 1e9 / steps
+        per_step = ""
+        if key != "assemble":  # no serial chain in the assembly
+            # the serial chain: W x 20 dependent steps (decode), F x W x 20 (encode)
+            steps = 20 * (args[1].shape[0] if key == "decode"
+                          else args[1].shape[0] * args[1].shape[1])
+            k["ns_per_step"] = k_s * 1e9 / steps
+            per_step = f", {k['ns_per_step']:.2f} ns per dependent step"
         say(f"phase 4: {key} kernel == plain on main-path inputs {shape}: "
             f"kernel {k_s * 1e3:.4f} ms, plain {p_s * 1e3:.2f} ms, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k['bound_bytes']} B, "
             f"{k['bound_alu_ops']:.4e} ALU + {k['bound_fma_ops']:.4e} FMA ops of "
-            f"{k['bound_issued']:.4e} issued), {k['ns_per_step']:.2f} ns per dependent "
-            f"step {tag}")
+            f"{k['bound_issued']:.4e} issued){per_step} {tag}")
     for key in kernels:
         kernels[key]["max_abs_err"] = max_err[key]
 
@@ -685,6 +750,7 @@ def main() -> int:
     say(json.dumps({"bench": bench_result}))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "timed_shape",
+             "fold_ms", "fold_bound_ms",
              "main_path_ms", "ns_per_step", "chain_per_step", "registers", "bench_launches",
              "modes")
     say(json.dumps({"kernels": [{k: v[k] for k in order if k in v}
@@ -706,7 +772,7 @@ def phase_bench(dev, card, bench_streams, fn_ops, card_peaks):
     Returns (the line's object, the launches counted per kernel, the
     probe's among them)."""
     from qoaudio_tpu_torch import bench, bitstream
-    from qoaudio_tpu_torch.ops import cuda_decode
+    from qoaudio_tpu_torch.ops import cuda_assemble, cuda_decode
 
     sizes = bench.Sizes()
     calls = 2 * sizes.iters + 2  # warm, timed end to end; the handle: warm, timed
@@ -726,10 +792,12 @@ def phase_bench(dev, card, bench_streams, fn_ops, card_peaks):
     }
     reset_launch_counts()
     cuda_decode.variant_launches = 0
+    assembled = cuda_assemble.launches
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = bench.main(dev)
     seen = launch_counts()
+    assembled = cuda_assemble.launches - assembled
     seen_variants = cuda_decode.variant_launches
     require(rc == 0, f"bench.main returned {rc}")
     lines = out.getvalue().strip().splitlines()
@@ -784,7 +852,8 @@ def phase_bench(dev, card, bench_streams, fn_ops, card_peaks):
         say(f"phase 8: bound of one 64x{W}x20x{N} encode launch: full "
             f"{bounds[0]['bound_ms']:.4f} ms, masked {bounds[1]['bound_ms']:.4f} ms "
             f"({bounds[0]['bound_by']})")
-    return result, {**{k: seen[k] for k in total}, "variants": seen_variants}
+    return result, {**{k: seen[k] for k in total}, "variants": seen_variants,
+                    "assemble": assembled}
 
 
 def phase_entry(dev):
@@ -1162,7 +1231,7 @@ def kernel_ms(call, dev):
 
     from qoaudio_tpu_torch.utils.timing import Stopwatch
 
-    spent = {"decode": 0.0, "masked": 0.0, "full": 0.0}
+    spent = {"decode": 0.0, "masked": 0.0, "full": 0.0, "assemble": 0.0}
 
     def timed(key, fn):
         def run(*args):

@@ -356,7 +356,7 @@ def transcode_rates(label, streams, total, device, gate_files, iters):
         times.append(sw.elapsed)
     e2e = rate(f"{label}: end to end (Rust pair {RUST_TRANSCODE_MSPS:.1f})", times, total)
     # the device side of the same pipeline (decode -> relayout -> encode ->
-    # packing), re-run through the handle with no host staging or fetch
+    # assembly), re-run through the handle with no host staging or fetch
     times, _ = time_calls(handle, device=device, warmup=1, iters=iters)
     return e2e, rate(f"{label}: device pipeline (handle)", times, total)
 

@@ -8,17 +8,19 @@ The counterpart of ``experiments/tpu_transcode_profile.py``.  The stages of
 pipeline's stream: the decode kernel, the relayout gather
 (``_relayout_encode_input``, once per 64-frame chunk), ``_transcode_lens``
 (once per masked chunk), the full-window and the masked encode launches,
-and the packing (two concatenations and two gathers).  The events are
-recorded around the pipeline's own calls while the transcode handle runs,
-so the stages are the handle's, not a copy of them; what lies between two
-stages (the host issuing the next one) is reported as ``gaps``, and the
-stages' sum is held beside the handle's time without events.  Each encode
-stage also gives its ns per dependent step (its time over the frames x 256
-windows x 20 steps of its launches).  Before any timing every file is
-gated against the native decode -> encode pair.  Arguments name the
-corpora to profile (default ``bench``): ``saturated`` is the benchmark's
-128 x 64-frame corpus (256 encode chains), ``mixed`` the 128 x 64 + 128 x
-256-frame corpus of ``bucketed_transcode`` (512 chains).
+and ``pack``, everything after the last encode launch (the concatenations
+and the stream assembly kernel; two packing gathers when the OUTCOME below
+was measured).  The events are recorded around the pipeline's own calls
+while the transcode handle runs, so the stages are the handle's, not a copy
+of them; what lies between two stages (the host issuing the next one) is
+reported as ``gaps``, and the stages' sum is held beside the handle's time
+without events.  Each encode stage also gives its ns per dependent step
+(its time over the frames x 256 windows x 20 steps of its launches).
+Before any timing every file is gated against the native decode -> encode
+pair.  Arguments name the corpora to profile (default ``bench``):
+``saturated`` is the benchmark's 128 x 64-frame corpus (256 encode chains),
+``mixed`` the 128 x 64 + 128 x 256-frame corpus of ``bucketed_transcode``
+(512 chains).
 
 OUTCOME (NVIDIA H100 80GB HBM3, 700.00 W; one run of this module with
 ``bench saturated mixed``; ms, medians of 5, calls in parentheses):

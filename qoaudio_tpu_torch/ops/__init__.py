@@ -4,7 +4,10 @@
   layout and the port's;
 * ``decode``      — plain LMS decoder (CPU and CUDA tensors alike);
 * ``encode``      — plain 16-candidate encoder;
-* ``cuda_decode`` / ``cuda_encode`` — wrappers that launch the hand-written
-  kernels for CUDA tensors and take the plain versions for CPU tensors;
+* ``assemble``    — plain stream assembly (QOA bytes from the encoder's
+  outputs) and its per-file table;
+* ``cuda_decode`` / ``cuda_encode`` / ``cuda_assemble`` — wrappers that
+  launch the hand-written kernels for CUDA tensors and take the plain
+  versions for CPU tensors;
 * ``_build``      — builds ``csrc/*.cu`` with nvcc at first use.
 """

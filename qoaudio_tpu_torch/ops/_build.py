@@ -145,7 +145,7 @@ def ptxas_registers(report: str) -> dict:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.qoa_decode_chains_cuda.argtypes = [p, p, i, i, p, p]
     lib.qoa_decode_chains_cuda.restype = i
     lib.qoa_decode_variant_cuda.argtypes = [p, p, i, i, p, i, i, p]
@@ -154,6 +154,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qoa_encode_frames_cuda.restype = i
     lib.qoa_encode_frames_full_cuda.argtypes = [p, p, i, i, i, p, p, p, p]
     lib.qoa_encode_frames_full_cuda.restype = i
+    lib.qoa_assemble_cuda.argtypes = [p, p, i, ll, p, i, ll, p, p]
+    lib.qoa_assemble_cuda.restype = i
     ip = ctypes.POINTER(i)
     lib.qoa_encode_occupancy.argtypes = [ip, ip, ip]
     lib.qoa_encode_occupancy.restype = i

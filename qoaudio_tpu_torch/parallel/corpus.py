@@ -11,11 +11,11 @@ a whole corpus runs in a few kernel launches:
   launches of ``chunk_frames`` with the LMS carried on the device (per
   shard, on its own device, on a mesh); each file's PCM is uploaded once,
   as it is interleaved, and laid out for the encoder on the device (one
-  gather a chunk);
+  gather a chunk); the streams are assembled on the device;
 * ``batch_transcode`` — decode, then relayout ON THE DEVICE into the
-  encoder's layout (one ``index_select`` plus a ``permute``), then encode:
-  the PCM never leaves device memory, and only compressed words and LMS
-  snapshots come back.  On a mesh whole files are partitioned over the
+  encoder's layout (one ``index_select`` plus a ``permute``), then encode
+  and assemble the streams: the PCM never leaves device memory, and only
+  the streams' bytes come back.  On a mesh whole files are partitioned over the
   devices, so a file's PCM stays on one device.  A mixed-length corpus may
   split into length buckets (``bucket="auto"``), and the staged device
   pipeline can be handed out (``return_fused_handle=True``);
@@ -30,6 +30,12 @@ sizes) go to the host decode -> encode pair of the port's own codec (the
 native engine, else ``"torch"`` on the call's device), which gives the
 same bytes; the module integer ``host_pair_files`` counts them.
 
+The streams' bytes are written on the device, every file of a device
+group back to back in one uint8 tensor (``ops.cuda_assemble``: the kernel
+on a CUDA device, its plain version on a CPU device), from a per-file
+table built on the host (``ops.assemble.file_table``); one fetch brings
+them back, and the host only cuts the buffer at the table's offsets.
+
 Under a running ``torch.profiler`` each host stage of a call is a span
 (``utils/timing.span``), once per stage and sub-call, never per file:
 ``qoa.parse``, ``qoa.host_pair`` (the eligibility split and the files
@@ -38,7 +44,8 @@ transcode staging, the encode checks and the flat PCM buffer) with
 ``qoa.bucket`` inside (the length-bucket choice), ``qoa.upload``
 (``put_arrays``), ``qoa.pipeline`` (queuing the device work),
 ``qoa.fetch`` with ``qoa.wait`` inside (``fetch_arrays``) and
-``qoa.assemble`` (the files' bytes).
+``qoa.assemble`` (cutting the fetched bytes into files, and the host
+assembly of files that straddle shards).
 """
 
 from __future__ import annotations
@@ -60,7 +67,7 @@ from .. import bitstream as bs
 from .. import codec
 from .. import format as fmt
 from ..errors import InvalidSamples
-from ..ops import cuda_decode, cuda_encode
+from ..ops import assemble, cuda_assemble, cuda_decode, cuda_encode
 from ..ops.layout import frame_major
 from ..types import DecodedQoa, QoaDesc
 from ..utils.timing import span
@@ -69,6 +76,8 @@ from .mesh import (Mesh, decode_chains_sharded, encode_frames_sharded,
                    gather_chains, round_up, shard_chain_arrays)
 
 host_pair_files = 0  # files that took the host decode -> encode pair
+# files batch_encode assembled on the host: their chains straddle shards
+host_assembled_files = 0
 
 # Length-bucketing cost model (_length_buckets), in padded lane-frames.  On
 # a CPU device: the JAX package's XLA model and constants, so the port
@@ -235,63 +244,101 @@ def _encode_input(flat: torch.Tensor, vec: torch.Tensor, f0: int, f1: int,
     return x
 
 
+@dataclasses.dataclass
+class _EncodeStaged:
+    """What ``_stage_encode`` leaves for the device: each file's first
+    chain, the real chain count ``N``, the frames and windows the chunks
+    run, the frames every chain has full, and the per-shard flat PCM,
+    chain vectors and start states."""
+
+    offsets: List[int]
+    N: int
+    F_max: int
+    W_use: int
+    f_full: int
+    flats: list
+    vecs: list
+    states: list
+
+
+def _stage_encode(files, mesh: Mesh, state=None) -> _EncodeStaged:
+    """The encode's host side, inside the caller's ``qoa.stage``: checks,
+    the start state, the flat PCM buffer and the uploads."""
+    for pcm, desc in files:
+        codec._validate_desc(desc)
+        if np.asarray(pcm).size != desc.samples * desc.channels:
+            raise InvalidSamples()
+
+    F_max = max(-(-d.samples // fmt.QOA_FRAME_LEN) for _, d in files)
+    # a corpus of sub-frame clips scans only the windows it has; trailing
+    # zero-length windows pass LMS through, so dropping them is exact
+    W_use = max(
+        fmt.QOA_SLICES_PER_FRAME if d.samples > fmt.QOA_FRAME_LEN
+        else -(-d.samples // fmt.QOA_SLICE_LEN)
+        for _, d in files
+    )
+    offsets = []
+    n = 0
+    for _, d in files:
+        offsets.append(n)
+        n += d.channels
+    N = n
+    Np = round_up(N, mesh.size)  # padding chains run on lens 0, then drop
+    f_full = min(d.samples // fmt.QOA_FRAME_LEN for _, d in files)
+
+    start = codec.initial_encoder_state(0, Np)
+    if state is not None:
+        start[:, :N] = state
+    flats, vec = _stage_encode_pcm(files, offsets, mesh, Np)
+    states, vecs = shard_chain_arrays(mesh, start, vec)
+    return _EncodeStaged(offsets, N, F_max, W_use, f_full, flats, vecs, states)
+
+
+def _cat(parts: List[torch.Tensor]) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _encode_run(st: _EncodeStaged, mesh: Mesh, chunk_frames: int):
+    """The staged encode on the devices: each chunk of ``chunk_frames``
+    frames laid out for the encoder on the shard's own device
+    (``_encode_input``), which runs it, carrying its LMS there; leading
+    all-full chunks take the full-window kernel.  Returns the per-shard
+    device tensors: states (8, n), snaps (F_max, 8, n), words
+    (F_max, W_use, n) int64 logical."""
+    states = st.states
+    snaps, words = [], []  # per chunk, the per-shard device tensors
+    for f0 in range(0, st.F_max, chunk_frames):
+        f1 = min(f0 + chunk_frames, st.F_max)
+        with span("qoa.pipeline"):
+            xs = [_encode_input(x, v, f0, f1, st.W_use) for x, v in zip(st.flats, st.vecs)]
+            lens = None if f1 <= st.f_full else [
+                _transcode_lens(v[2], f0, f1, st.W_use) for v in st.vecs]
+            states, s, w = encode_frames_sharded(mesh, states, xs, lens)
+        snaps.append(s)
+        words.append(w)
+    per_shard = range(mesh.size)
+    return (states, [_cat([c[k] for c in snaps]) for k in per_shard],
+            [_cat([c[k] for c in words]) for k in per_shard])
+
+
 def _encode_sharded(files, mesh: Mesh, chunk_frames: int, state=None):
     """Encode many PCM streams, each channel one chain, the chain axis
     padded to a multiple of the mesh size and sharded over it.
 
     The files' PCM is copied once into one flat buffer and each shard's
-    slice uploaded once; each chunk of ``chunk_frames`` frames is laid out
-    for the encoder on the shard's own device (``_encode_input``), which
-    runs it, carrying its LMS there; leading all-full chunks take the
-    full-window kernel.  ``state`` is the int32 (8, N) LMS the chains
+    slice uploaded once; the chunks run on the shards' devices
+    (``_encode_run``).  ``state`` is the int32 (8, N) LMS the chains
     start from (default: the encoder's initial state).  Returns host
     arrays (state (8, N), snaps (F, 8, N), words (F, W, N) uint64 logical)
     and each file's first chain.
     """
     with span("qoa.stage"):
-        for pcm, desc in files:
-            codec._validate_desc(desc)
-            if np.asarray(pcm).size != desc.samples * desc.channels:
-                raise InvalidSamples()
-
-        F_max = max(-(-d.samples // fmt.QOA_FRAME_LEN) for _, d in files)
-        # a corpus of sub-frame clips scans only the windows it has; trailing
-        # zero-length windows pass LMS through, so dropping them is exact
-        W_use = max(
-            fmt.QOA_SLICES_PER_FRAME if d.samples > fmt.QOA_FRAME_LEN
-            else -(-d.samples // fmt.QOA_SLICE_LEN)
-            for _, d in files
-        )
-        offsets = []
-        n = 0
-        for _, d in files:
-            offsets.append(n)
-            n += d.channels
-        N = n
-        Np = round_up(N, mesh.size)  # padding chains run on lens 0, then drop
-        f_full = min(d.samples // fmt.QOA_FRAME_LEN for _, d in files)
-
-        start = codec.initial_encoder_state(0, Np)
-        if state is not None:
-            start[:, :N] = state
-        flats, vec = _stage_encode_pcm(files, offsets, mesh, Np)
-        states, vecs = shard_chain_arrays(mesh, start, vec)
-    snaps, words = [], []  # per chunk, the per-shard device tensors
-    for f0 in range(0, F_max, chunk_frames):
-        f1 = min(f0 + chunk_frames, F_max)
-        with span("qoa.pipeline"):
-            xs = [_encode_input(x, v, f0, f1, W_use) for x, v in zip(flats, vecs)]
-            lens = None if f1 <= f_full else [
-                _transcode_lens(v[2], f0, f1, W_use) for v in vecs]
-            states, s, w = encode_frames_sharded(mesh, states, xs, lens)
-        snaps.append(s)
-        words.append(w)
-    per_shard = range(mesh.size)
-    snaps = gather_chains([torch.cat([c[k] for c in snaps]) for k in per_shard])
-    words = gather_chains([torch.cat([c[k] for c in words]) for k in per_shard])
-    state = gather_chains(states)
+        st = _stage_encode(files, mesh, state)
+    states, snaps, words = _encode_run(st, mesh, chunk_frames)
+    N = st.N
+    snaps, words, state = (gather_chains(t) for t in (snaps, words, states))
     return (state[:, :N], snaps[..., :N], words[..., :N].view(np.uint64),
-            offsets)
+            st.offsets)
 
 
 def encode_chains(
@@ -312,6 +359,47 @@ def encode_chains(
     return _encode_sharded(files, _placement(device, None), chunk_frames, state)
 
 
+def _shard_tables(files, offsets: List[int], mesh: Mesh, n_chains: int):
+    """Which shard assembles which file: a file whose chains lie in one
+    shard of ``n_chains`` chains is assembled there, from its chains'
+    place in the shard.  Returns (shard, file indices, table, bytes,
+    frames) of every shard that holds a whole file, and the files whose
+    chains straddle two or more shards."""
+    C = np.array([d.channels for _, d in files], np.int64)
+    offs = np.asarray(offsets, np.int64)
+    first = offs // n_chains
+    whole = first == (offs + C - 1) // n_chains
+    plans = []
+    for k in range(mesh.size):
+        idx = np.flatnonzero(whole & (first == k))
+        if len(idx):
+            ds = [files[i][1] for i in idx]
+            plans.append((k, idx.tolist(), *assemble.file_table(
+                C[idx], [d.sample_rate for d in ds], [d.samples for d in ds],
+                offs[idx] - k * n_chains)))
+    return plans, np.flatnonzero(~whole).tolist()
+
+
+def _straddling_pieces(d, off: int, n_chains: int, snaps, words):
+    """A straddling file's chains, shard by shard: (snaps, words) device
+    slices of its real frames, to be joined on the host."""
+    F = -(-d.samples // fmt.QOA_FRAME_LEN)
+    pieces = []
+    for k in range(off // n_chains, (off + d.channels - 1) // n_chains + 1):
+        lo = max(off, k * n_chains) - k * n_chains
+        hi = min(off + d.channels, (k + 1) * n_chains) - k * n_chains
+        pieces += [snaps[k][:F, :, lo:hi], words[k][:F, :, lo:hi]]
+    return pieces
+
+
+def _cut(buf: np.ndarray, offsets) -> List[bytes]:
+    """One fetched buffer of streams laid back to back -> each stream's
+    bytes, from its offset to the next one's."""
+    mv = memoryview(buf)
+    ends = [*offsets[1:], len(buf)]
+    return [mv[a:b].tobytes() for a, b in zip(offsets, ends)]
+
+
 def batch_encode(
     files: Sequence[tuple[np.ndarray, QoaDesc]],
     device=None,
@@ -322,25 +410,44 @@ def batch_encode(
     sharded over ``mesh``.
 
     Returns QOA bytes per file, each bit-exact with single-file encoding
-    (chains are independent; zero-length padding windows are inert).
+    (chains are independent; zero-length padding windows are inert).  The
+    streams are assembled on the device (``cuda_assemble``): each shard
+    writes the bytes of the files whose chains it holds whole, and only
+    bytes come back.  A file whose channels straddle two shards is
+    assembled on the host from its fetched chains; the module integer
+    ``host_assembled_files`` counts those.
     """
+    global host_assembled_files
     on = _placement(device, mesh)
     if not files:
         return []
-    _, snaps, words, offsets = _encode_sharded(files, on, chunk_frames)
-    out: List[bytes] = []
+    with span("qoa.stage"):
+        st = _stage_encode(files, on)
+        n_chains = round_up(st.N, on.size) // on.size
+        plans, straddling = _shard_tables(files, st.offsets, on, n_chains)
+        tables = [put_arrays([t], on.devices[k])[0] for k, _, t, _, _ in plans]
+    _, snaps, words = _encode_run(st, on, chunk_frames)
+    with span("qoa.pipeline"):
+        bufs = [cuda_assemble.assemble_streams(snaps[k], words[k], t, n_bytes, n_frames)
+                for (k, _, _, n_bytes, n_frames), t in zip(plans, tables)]
+        pieces = [_straddling_pieces(files[i][1], st.offsets[i], n_chains, snaps, words)
+                  for i in straddling]
+    fetched = fetch_arrays(bufs + [t for ps in pieces for t in ps])
+    out: List[Optional[bytes]] = [None] * len(files)
     with span("qoa.assemble"):
-        for (_, d), off in zip(files, offsets):
-            C = d.channels
-            out.append(
-                bs.assemble_stream_bytes(
-                    C,
-                    d.sample_rate,
-                    d.samples,
-                    np.ascontiguousarray(snaps[:, :, off : off + C]),
-                    np.ascontiguousarray(words[:, :, off : off + C]),
-                )
-            )
+        for (_, idx, table, _, _), buf in zip(plans, fetched):
+            for i, data in zip(idx, _cut(buf, table[assemble.OFFSET].tolist())):
+                out[i] = data
+        pos = len(bufs)
+        for i, ps in zip(straddling, pieces):
+            got = fetched[pos : pos + len(ps)]
+            pos += len(ps)
+            d = files[i][1]
+            out[i] = bs.assemble_stream_bytes(
+                d.channels, d.sample_rate, d.samples,
+                np.concatenate(got[0::2], axis=-1),
+                np.concatenate(got[1::2], axis=-1).view(np.uint64))
+        host_assembled_files += len(straddling)
     return out
 
 
@@ -424,7 +531,7 @@ def _transcode_lens(samples: torch.Tensor, f0: int, f1: int, W_enc: int):
 def _relayout_index(metas, F: int, Ne: int) -> np.ndarray:
     """(F, Ne) decode-chain row of each (frame, encode chain).  Invalid
     slots (f >= F_i) point at row 0: their lens are 0, so the encoder
-    passes state through and the per-file packing drops their output."""
+    passes state through and the assembly never reads their output."""
     idx = np.zeros((F, Ne), np.int64)
     for F_i, C, doff, eoff in metas:
         for c in range(C):
@@ -551,15 +658,15 @@ class TranscodeFusedHandle:
 
     Holds the device-resident staged arguments (raw BE words, decode
     state, relayout index, per-chain samples, initial encoder state, the
-    packing's row index),
-    which pins them in device memory while the handle lives, and ``fn``,
-    which runs decode -> relayout -> lens -> chunked encode -> tight
-    packing on them.  Calling the handle re-issues those launches with no
-    host staging and returns the packed (snaps int32, words int64) device
-    tensors, unfetched.  ``batch_transcode`` itself runs through the
-    handle, so timing a call (with a synchronize) times exactly the device
-    side of the end-to-end path.  ``assemble(snaps, words)`` turns the
-    fetched host arrays into the files' bytes.
+    per-file assembly table), which pins them in device memory while the
+    handle lives, and ``fn``, which runs decode -> relayout -> lens ->
+    chunked encode -> stream assembly on them.  Calling the handle
+    re-issues those launches with no host staging and returns a one-tuple
+    of the uint8 device tensor that holds every file's bytes, unfetched.
+    ``batch_transcode`` itself runs through the handle, so timing a call
+    (with a synchronize) times exactly the device side of the end-to-end
+    path.  ``assemble(buf)`` cuts the fetched buffer into the files'
+    bytes: ``h.assemble(*fetch_arrays(h()))``.
     """
 
     __slots__ = ("fn", "args", "assemble")
@@ -573,18 +680,20 @@ class TranscodeFusedHandle:
         return self.fn(*self.args)
 
 
-def _transcode_pipeline(dstate, words_be, idx, samples, state, rows, *,
-                        W_enc: int, chunk: int, f_full: int):
+def _transcode_pipeline(dstate, words_be, idx, samples, state, table, *,
+                        W_enc: int, chunk: int, f_full: int, n_bytes: int,
+                        n_frames: int):
     """Step 2 of a transcode, all on the staged tensors' device: decode ->
-    relayout -> lens -> chunked encode -> tight per-file packing.  Returns
-    the packed (snaps, words) device tensors.  Chunks below ``f_full`` —
-    where every window of every chain holds 20 samples — take the
-    full-window kernel; the LMS carries across chunks on the device."""
+    relayout -> lens -> chunked encode -> every file's stream, assembled
+    from the encoder's outputs by one launch.  Returns a one-tuple of the
+    uint8 bytes tensor.  Chunks below ``f_full`` — where every window of
+    every chain holds 20 samples — take the full-window kernel; the LMS
+    carries across chunks on the device."""
     dec = cuda_decode.decode_chains_words(dstate, words_be)  # (W, 20, Nd)
-    n_frames = idx.shape[0]
+    F = idx.shape[0]
     snaps, words = [], []
-    for f0 in range(0, n_frames, chunk):
-        f1 = min(f0 + chunk, n_frames)
+    for f0 in range(0, F, chunk):
+        f1 = min(f0 + chunk, F)
         x = _relayout_encode_input(dec, idx[f0:f1], W_enc)
         if f1 <= f_full:
             state, s, w = cuda_encode.encode_frames_full(state, x)
@@ -593,42 +702,20 @@ def _transcode_pipeline(dstate, words_be, idx, samples, state, rows, *,
             state, s, w = cuda_encode.encode_frames(state, x, lens)
         snaps.append(s)
         words.append(w)
-    snaps, words = torch.cat(snaps), torch.cat(words)
-    # tight packing, one gather each: every chain's real frames (row
-    # chain * F + frame), file by file; only real compressed data crosses
-    # to the host
-    sp = snaps.permute(2, 0, 1).reshape(-1, 8).index_select(0, rows)
-    wp = words.permute(2, 0, 1).reshape(-1, W_enc).index_select(0, rows)
-    return sp, wp
+    return (cuda_assemble.assemble_streams(_cat(snaps), _cat(words), table, n_bytes,
+                                           n_frames),)
 
 
-def _assemble_transcode(parsed, W_enc: int, sp: np.ndarray,
-                        wp: np.ndarray) -> List[bytes]:
-    """Step 3: the fetched packed rows (chain, frame) -> each file's bytes."""
-    wp = wp.view(np.uint64)
-    out: List[bytes] = []
-    r = 0
+def _assemble_transcode(offsets: List[int], buf: np.ndarray) -> List[bytes]:
+    """Step 3: the fetched bytes of every file -> each file's bytes."""
     with span("qoa.assemble"):
-        for p in parsed:
-            F_i, C = p.n_frames, p.channels
-            n = F_i * C
-            out.append(
-                bs.assemble_stream_bytes(
-                    C,
-                    p.sample_rate,
-                    int(p.samples_per_frame.sum()),
-                    sp[r : r + n].reshape(C, F_i, 8).transpose(1, 2, 0),
-                    wp[r : r + n].reshape(C, F_i, W_enc).transpose(1, 2, 0),
-                )
-            )
-            r += n
-    return out
+        return _cut(buf, offsets)
 
 
 def _stage_transcode(parsed, device, chunk_frames: int) -> TranscodeFusedHandle:
-    """Step 1 of a transcode: stage the files' words and the relayout on
-    the host and upload them to ``device``; returns the handle onto
-    step 2."""
+    """Step 1 of a transcode: stage the files' words, the relayout and the
+    assembly table on the host and upload them to ``device``; returns the
+    handle onto step 2."""
     words_be, dstate, doffs = _stage_decode(
         parsed, pin=torch.device(device).type == "cuda")
     eoffs = []
@@ -642,29 +729,28 @@ def _stage_transcode(parsed, device, chunk_frames: int) -> TranscodeFusedHandle:
         fmt.QOA_SLICES_PER_FRAME if p.n_frames > 1 else p.max_windows
         for p in parsed
     )
-    samples = np.zeros(Ne, np.int64)  # samples/channel of each encode chain
-    frames = np.zeros(Ne, np.int64)  # frames of each encode chain
-    for p, eoff in zip(parsed, eoffs):
-        samples[eoff : eoff + p.channels] = int(p.samples_per_frame.sum())
-        frames[eoff : eoff + p.channels] = p.n_frames
+    file_samples = [int(p.samples_per_frame.sum()) for p in parsed]
+    chans = [p.channels for p in parsed]
+    samples = np.repeat(file_samples, chans)  # samples/channel of each encode chain
     metas = tuple(
         (p.n_frames, p.channels, doff, eoff)
         for p, doff, eoff in zip(parsed, doffs, eoffs)
     )
-    # packed row of (chain j, frame f < frames[j]): j * F_max + f, chain-major
-    first = np.repeat(np.cumsum(frames) - frames, frames)
-    rows = np.repeat(np.arange(Ne) * F_max, frames) + np.arange(int(frames.sum())) - first
+    table, n_bytes, n_frames = assemble.file_table(
+        chans, [p.sample_rate for p in parsed], file_samples, eoffs)
     args = put_arrays(
         [dstate, words_be, _relayout_index(metas, F_max, Ne), samples,
-         codec.initial_encoder_state(0, Ne), rows],
+         codec.initial_encoder_state(0, Ne), table],
         device,
     )
     fn = functools.partial(
         _transcode_pipeline, W_enc=W_enc, chunk=chunk_frames,
-        f_full=int(samples.min()) // fmt.QOA_FRAME_LEN,
+        f_full=int(samples.min()) // fmt.QOA_FRAME_LEN, n_bytes=n_bytes,
+        n_frames=n_frames,
     )
     return TranscodeFusedHandle(
-        fn, tuple(args), functools.partial(_assemble_transcode, parsed, W_enc))
+        fn, tuple(args),
+        functools.partial(_assemble_transcode, table[assemble.OFFSET].tolist()))
 
 
 def _file_groups(parsed, n_groups: int) -> List[List[int]]:
@@ -694,12 +780,12 @@ def _transcode_groups(parsed, mesh: Mesh, chunk_frames: int):
             with span("qoa.stage"):
                 h = _stage_transcode([parsed[i] for i in idx], dev, chunk_frames)
             with span("qoa.pipeline"):
-                packed = h()
-            runs.append((idx, h, packed))
-    fetched = fetch_arrays([t for _, _, packed in runs for t in packed])
+                (buf,) = h()
+            runs.append((idx, h, buf))
+    fetched = fetch_arrays([buf for _, _, buf in runs])
     outs: List[Optional[bytes]] = [None] * len(parsed)
-    for k, (idx, h, _) in enumerate(runs):
-        for i, data in zip(idx, h.assemble(*fetched[2 * k : 2 * k + 2])):
+    for (idx, h, _), buf in zip(runs, fetched):
+        for i, data in zip(idx, h.assemble(buf)):
             outs[i] = data
     return outs, [h for _, h, _ in runs]
 
@@ -753,8 +839,9 @@ def batch_transcode(
     """Transcode many QOA streams with the PCM device-resident end to end.
 
     The decode kernel's output re-lays out on the device into the
-    encoder's frame layout and feeds the encoder directly; only the
-    compressed slice words and LMS snapshots return to the host.  The
+    encoder's frame layout and feeds the encoder directly, and the
+    encoder's outputs are assembled into the streams there; only the
+    streams' bytes return to the host.  The
     encoder runs in launches of ``chunk_frames`` frames (which bounds the
     relayout's device memory), the leading all-full chunks on the
     full-window kernel.  Streams that are not fixed-layout, or multi-frame

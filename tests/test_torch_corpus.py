@@ -91,6 +91,32 @@ def test_batch_encode_full_chunks_and_tails():
     assert got == [codec.encode_all(p, d, backend="native") for p, d in files]
 
 
+@pytest.mark.parametrize("devices, eight, straddling", [
+    (1, False, 0),  # one device assembles every file
+    (2, False, 1),  # chains 0 | 1 2 | 3 on shards of 2: the stereo file straddles
+    (4, False, 1),  # one chain a shard: the stereo file over two
+    (8, True, 2),  # shards of 2 chains: the stereo file, and an 8-channel one over four
+])
+def test_batch_encode_assembles_straddling_files_on_the_host(devices, eight, straddling):
+    """On a mesh each shard assembles the files whose chains it holds
+    whole; a file whose channels straddle a shard cut is assembled on the
+    host from its own chains, and counted.  The bytes are the native
+    engine's either way."""
+    from qoaudio_tpu_torch.parallel import make_mesh
+
+    if not native.available():
+        pytest.skip("native engine unavailable")
+    shapes = [(300, 1), (410, 2), (200, 1)] + ([(100, 8)] if eight else [])
+    files = [(make_noise(n, c, seed=90 + i, amplitude=15000), QoaDesc(c, 44100, n))
+             for i, (n, c) in enumerate(shapes)]
+    where = (dict(device="cpu") if devices == 1
+             else dict(mesh=make_mesh(devices=("cpu",) * devices)))
+    before = corpus.host_assembled_files
+    got = corpus.batch_encode(files, **where)
+    assert got == [codec.encode_all(p, d, backend="native") for p, d in files]
+    assert corpus.host_assembled_files == before + straddling
+
+
 def _as_is(pcm, desc):
     return pcm, desc
 

@@ -6,8 +6,8 @@ conftest; run it there from the repository root with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Each kernel is compared exactly with its plain PyTorch version on CUDA
-tensors, and the fixture's full re-encode through the port matches the
+Each kernel (decode, the two encoders, the stream assembly) is compared
+exactly with its plain PyTorch version on CUDA tensors, and the fixture's full re-encode through the port matches the
 SHA-256 golden of tests/test_native.py.
 """
 
@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from qoaudio_tpu_torch import bitstream, codec, native, types
-from qoaudio_tpu_torch.ops import cuda_decode, cuda_encode
+from qoaudio_tpu_torch.ops import assemble as plain_assemble
+from qoaudio_tpu_torch.ops import cuda_assemble, cuda_decode, cuda_encode
 from qoaudio_tpu_torch.ops import decode as plain_decode
 from qoaudio_tpu_torch.ops import encode as plain_encode
 from qoaudio_tpu_torch.parallel import corpus
@@ -354,6 +355,102 @@ def test_mesh_over_every_card(cuda):
              for k, d in enumerate(mesh.devices)]
     for k, a in enumerate(fetch_arrays(parts)):
         assert (a == k).all()
+
+
+def _assembly_inputs(shapes, device, seed, gap=0):
+    """Random encoder outputs (snaps over all of int32, so the weights
+    truncate) and the table of files ``shapes`` = [(channels, samples)],
+    ``gap`` padding chains before each, on ``device``."""
+    rng = np.random.default_rng(seed)
+    chains, n = [], 0
+    for c, _ in shapes:
+        n += gap
+        chains.append(n)
+        n += c
+    F = max(-(-t // 5120) for _, t in shapes)
+    W = 256 if any(t > 5120 for _, t in shapes) else max(-(-t // 20) for _, t in shapes)
+    snaps = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(F, 8, n)).astype(np.int32))
+    words = torch.from_numpy(rng.integers(-(1 << 63), 1 << 63, size=(F, W, n), dtype=np.int64))
+    table, n_bytes, n_frames = plain_assemble.file_table(
+        [c for c, _ in shapes], [44100 + 7 * i for i in range(len(shapes))],
+        [t for _, t in shapes], chains)
+    return (snaps.to(device), words.to(device), torch.from_numpy(table).to(device),
+            n_bytes, n_frames)
+
+
+ASSEMBLY_SHAPES = {
+    "esc50-fold": ([(1, 220_500)] * 400, 0),  # 400 x 44 frames
+    "stereo-track": ([(2, 2_394_122)], 0),  # the fixture's 468 frames
+    # three length buckets (3-16, 17-83, 84-259 frames), channels 1, 2 and 8,
+    # padding chains between the files
+    "three-buckets": ([((1, 2, 8)[i % 3], 13_536 + 97_003 * i % 1_322_841)
+                       for i in range(60)], 2),
+}
+
+
+@pytest.mark.parametrize("name", list(ASSEMBLY_SHAPES))
+def test_assemble_kernel_matches_plain(cuda, name):
+    """The assembly kernel writes the plain version's bytes, one launch."""
+    shapes, gap = ASSEMBLY_SHAPES[name]
+    args = _assembly_inputs(shapes, cuda, seed=len(name), gap=gap)
+    before = cuda_assemble.launches
+    got = cuda_assemble.assemble_streams(*args)
+    assert cuda_assemble.launches == before + 1
+    want = plain_assemble.assemble_streams(*args)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert torch.equal(got, want)
+
+
+def test_assemble_kernel_across_encode_chunks(cuda):
+    """batch_encode with 2-frame chunks over 5 frames: the kernel reads the
+    chunks' concatenated outputs, equals its plain version on them, and
+    the bytes are the native engine's."""
+    if not native.available():
+        pytest.skip("native engine unavailable")
+    rng = np.random.default_rng(15)
+    shapes = [(5120 * 4 + 333, 2), (5120 + 5110, 1), (700, 8), (5120 * 5, 1)]
+    files = [(rng.integers(-20000, 20000, size=n * c).astype(np.int16),
+              types.QoaDesc(c, 44100, n)) for n, c in shapes]
+    seen = []
+    real = cuda_assemble.assemble_streams
+
+    def check(*args):
+        out = real(*args)
+        seen.append(torch.equal(out, plain_assemble.assemble_streams(*args)))
+        return out
+
+    before = cuda_encode.masked_launches + cuda_encode.full_launches
+    cuda_assemble.assemble_streams = check
+    try:
+        got = corpus.batch_encode(files, cuda, chunk_frames=2)
+    finally:
+        cuda_assemble.assemble_streams = real
+    assert cuda_encode.masked_launches + cuda_encode.full_launches == before + 3
+    assert seen == [True]
+    assert got == [codec.encode_all(p, d, backend="native") for p, d in files]
+
+
+def test_assemble_launches_once_per_call_and_device_group(cuda):
+    """One assembly launch per call on one card, one per device group over
+    a mesh that lists the card twice (each group holds whole files); no
+    file is assembled on the host."""
+    from qoaudio_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(16)
+    shapes = [(5120 * 3 + 17, 2), (900, 1), (5120 + 5, 1), (4000, 2)]
+    files = [(rng.integers(-20000, 20000, size=n * c).astype(np.int16),
+              types.QoaDesc(c, 44100, n)) for n, c in shapes]
+    streams = [codec.encode_all(p, d, backend="native") for p, d in files]
+    two = make_mesh(devices=("cuda:0",) * 2)  # encode chains 0-2 | 3-5: whole files
+    host = corpus.host_assembled_files
+    for call, launched in ((lambda: corpus.batch_encode(files, cuda), 1),
+                           (lambda: corpus.batch_encode(files, mesh=two), 2),
+                           (lambda: corpus.batch_transcode(streams, cuda), 1),
+                           (lambda: corpus.batch_transcode(streams, mesh=two), 2)):
+        before = cuda_assemble.launches
+        call()
+        assert cuda_assemble.launches == before + launched
+    assert corpus.host_assembled_files == host
 
 
 def _small_bench_sizes():

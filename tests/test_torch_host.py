@@ -206,6 +206,9 @@ def test_tables_match_jax_format(source):
                 assert got[k] == want[k], k
         return
     tables = _c_int_arrays(os.path.join(ROOT, "qoaudio_tpu_torch", source))
+    if source == os.path.join("csrc", "qoa_assemble.cu"):
+        assert tables == {}  # it moves bits and quantises nothing: no table
+        return
     want = {"kScalefactorTab": sf, "kSfTab": sf, "kReciprocalTab": recip,
             "kRecipTab": recip, "kRecipV": recip, "kQuantLo": quant[:16],
             "kQuantHi": [quant[16]] + [0] * 15}
