@@ -48,7 +48,7 @@ raises and exits non-zero:
 6. the rest of the corpus layer on the card: ``batch_transcode``,
    ``batch_decode`` and ``batch_encode`` on the smoke corpus over
    ``make_mesh()`` (every visible card) and over a mesh that lists
-   ``cuda:0`` four times (its shards run in turn), each byte-equal to the
+   ``cuda:0`` four times (its device groups run in turn), each byte-equal to the
    native engine with its exact launches and timed (median of 3) beside
    the unsharded call; the transcode handle (``return_fused_handle``):
    its re-run gives the same bytes, and its device-side median beside the
@@ -376,8 +376,8 @@ def wrapped(make):
 
 
 def balanced_groups(parsed, k: int):
-    """The mesh transcode's partition of files over ``k`` devices, worked
-    out here apart from the corpus layer: files longest chain first (then
+    """The corpus layer's partition of files over ``k`` devices (on every
+    batched path), worked out here apart from it: files longest chain first (then
     samples x channels, then input order), each to the device with the
     least encode work so far (the first such device on a tie); each group
     in input order."""
@@ -627,7 +627,6 @@ def main() -> int:
     cuda_encode.full_launches = 0
     cuda_assemble.launches = 0
     corpus.host_pair_files = 0
-    corpus.host_assembled_files = 0
     with wrapped(capture):
         with Stopwatch(dev) as sw:
             got_tc = corpus.batch_transcode(streams, dev)
@@ -644,13 +643,12 @@ def main() -> int:
     host_pairs = corpus.host_pair_files
     say(f"phase 4: launches decode={counts['decode']} masked={counts['masked']} "
         f"full={counts['full']} assemble={counts['assemble']}, "
-        f"host_pair_files={host_pairs}, host_assembled_files={corpus.host_assembled_files}")
+        f"host_pair_files={host_pairs}")
     for key, n in counts.items():
         require(n > 0, f"kernel {key} never launched on the main path")
         kernels[key]["launches"] = n
     require(host_pairs == 0, f"{host_pairs} files took the host pair")
-    require(counts["assemble"] == 2 and corpus.host_assembled_files == 0,
-            "one assembly launch a call (transcode, encode) and no file assembled on the host")
+    require(counts["assemble"] == 2, "one assembly launch a call (transcode, encode)")
 
     bad = [i for i, (g, w) in enumerate(zip(got_tc, want_tc)) if g != w]
     require(not bad, f"batch_transcode != native pair for files {bad}")
@@ -890,12 +888,12 @@ def phase_entry(dev):
 
 def dryrun_launches(n: int, mesh) -> dict:
     """Exact launches of ``graft_entry.dryrun_multichip`` over ``mesh`` (of
-    ``n`` shards), worked out from its inputs: steps 1-4 launch once per
-    shard (one frame, partial windows: the masked encoder), step 5 and step
-    6's two mesh calls once per device group of the longest-chain-first
-    partition, step 6's one-device call once, and its handle once more;
-    a call whose corpus the cost model cuts makes these launches per
-    bucket."""
+    ``n`` shards), worked out from its inputs: steps 1-2 launch once per
+    shard (one frame, partial windows: the masked encoder); steps 3-4, step
+    5 and step 6's two mesh calls once per non-empty device group of the
+    longest-chain-first partition, step 6's one-device call once, and its
+    handle once more; a call whose corpus the cost model cuts makes these
+    launches per bucket."""
     from qoaudio_tpu_torch import bitstream, codec, graft_entry
     from qoaudio_tpu_torch.parallel import Mesh
 
@@ -914,8 +912,9 @@ def dryrun_launches(n: int, mesh) -> dict:
     _, files, mixed = graft_entry.dryrun_inputs(n)
     small, mix = parse(files), parse(mixed)
     one = Mesh(mesh.devices[:1])
-    calls = [{"decode": n, "masked": 2 * n},  # steps 2, 1 and 3
-             {"decode": n},  # step 4
+    groups = sum(1 for g in balanced_groups(small, mesh.size) if g)
+    calls = [{"decode": n, "masked": n},  # steps 2 and 1
+             {"decode": groups, "masked": groups},  # steps 4 and 3
              transcode(small, mesh, True),  # step 5
              transcode(mix, mesh, False), transcode(mix, mesh, True),
              transcode(mix, one, True), transcode(mix, one, True)]  # the call, the handle
@@ -1269,19 +1268,27 @@ def reset_launch_counts() -> None:
     corpus.host_pair_files = 0
 
 
+def encode_launches(groups, chunk=64) -> dict:
+    """Exact launches of a batch_encode whose device groups hold files of
+    these (frames, samples a channel): each non-empty group's chunked
+    encode, its leading all-full chunks on the full-window kernel."""
+    want = {"decode": 0, "masked": 0, "full": 0, "host_pair_files": 0}
+    for g in groups:
+        if g:
+            F = max(f for f, _ in g)
+            f_full = min(n for _, n in g) // 5120
+            full = sum(1 for f0 in range(0, F, chunk) if min(f0 + chunk, F) <= f_full)
+            want["full"] += full
+            want["masked"] += -(-F // chunk) - full
+    return want
+
+
 def transcode_launches(parsed_groups, chunk=64) -> dict:
     """Exact launches of a transcode whose device groups hold these parsed
     files: one decode each, then its chunked encode."""
-    want = {"decode": 0, "masked": 0, "full": 0, "host_pair_files": 0}
-    for g in parsed_groups:
-        if not g:
-            continue
-        F = max(p.n_frames for p in g)
-        f_full = min(int(p.samples_per_frame.sum()) for p in g) // 5120
-        full = sum(1 for f0 in range(0, F, chunk) if min(f0 + chunk, F) <= f_full)
-        want["decode"] += 1
-        want["full"] += full
-        want["masked"] += -(-F // chunk) - full
+    want = encode_launches([[(p.n_frames, int(p.samples_per_frame.sum())) for p in g]
+                            for g in parsed_groups], chunk)
+    want["decode"] = sum(1 for g in parsed_groups if g)
     return want
 
 
@@ -1315,10 +1322,6 @@ def mesh_phase(dev, tag, files, streams, want_tc, want_dec, want_enc):
                    and np.array_equal(g.samples, w.samples) for g, w in zip(got, want_dec))
 
     parsed = [bitstream.parse_file_arrays(s) for s in streams]
-    F_max = max(-(-d.samples // 5120) for _, d in files)
-    f_full = min(d.samples for _, d in files) // 5120
-    full = sum(1 for f0 in range(0, F_max, 64) if min(f0 + 64, F_max) <= f_full)
-    enc_one = {"full": full, "masked": -(-F_max // 64) - full}
     placements = [("unsharded", dict(device=dev)),
                   ("make_mesh()", dict(mesh=make_mesh())),
                   ("cuda:0 x4", dict(mesh=make_mesh(devices=("cuda:0",) * 4)))]
@@ -1328,19 +1331,25 @@ def mesh_phase(dev, tag, files, streams, want_tc, want_dec, want_enc):
         idx_groups = balanced_groups(parsed, m.size)
         require(all(idx_groups) or len(parsed) < m.size,
                 f"{label}: a device holds no file: {idx_groups}")
-        require(corpus._file_groups(parsed, m.size) == idx_groups,
-                f"{label}: the corpus layer's groups differ from the longest-chain-first "
-                f"balance {[len(g) for g in idx_groups]}")
+        for what, frames, work in (
+                ("parsed streams", [p.n_frames for p in parsed],
+                 [int(p.samples_per_frame.sum()) * p.channels for p in parsed]),
+                ("PCM", [-(-d.samples // 5120) for _, d in files],
+                 [d.samples * d.channels for _, d in files])):
+            require(corpus._file_groups(frames, work, m.size) == idx_groups,
+                    f"{label}: the corpus layer's groups of the {what} differ from the "
+                    f"longest-chain-first balance {[len(g) for g in idx_groups]}")
         groups = [[parsed[i] for i in g] for g in idx_groups]
+        n_groups = sum(1 for g in idx_groups if g)
         cases = (
             ("batch_transcode", lambda: corpus.batch_transcode(streams, **where),
              lambda got: got == want_tc, transcode_launches(groups)),
             ("batch_decode", lambda: corpus.batch_decode(streams, **where), same_dec,
-             {"decode": m.size, "masked": 0, "full": 0, "host_pair_files": 0}),
+             {"decode": n_groups, "masked": 0, "full": 0, "host_pair_files": 0}),
             ("batch_encode", lambda: corpus.batch_encode(files, **where),
              lambda got: got == want_enc,
-             {"decode": 0, "host_pair_files": 0,
-              **{k: v * m.size for k, v in enc_one.items()}}),
+             encode_launches([[(-(-files[i][1].samples // 5120), files[i][1].samples)
+                               for i in g] for g in idx_groups])),
         )
         for name, call, ok, want_counts in cases:
             reset_launch_counts()
@@ -1352,7 +1361,7 @@ def mesh_phase(dev, tag, files, streams, want_tc, want_dec, want_enc):
             med, times = median_time(call, m)
             if label == "unsharded":
                 unsharded[name] = med
-            say(f"phase 6: {name} over {label} ({m.size} shard(s) on "
+            say(f"phase 6: {name} over {label} ({m.size} device(s) on "
                 f"{', '.join(sorted({str(d) for d in m.devices}))}; files per group "
                 f"{[len(g) for g in groups]}) == native, launches "
                 f"{ {k: v for k, v in seen.items() if k != 'host_pair_files'} }: "
@@ -1366,7 +1375,8 @@ def mesh_cards() -> int:
 
     ``make_mesh()`` then spans every card, so this drives what exists only
     across cards: per-card launches, fetches and waits over several
-    devices, and files split over cards.  Exits 2 with no CUDA device."""
+    devices, and each card's group of whole files.  Exits 2 with no CUDA
+    device."""
     import torch
 
     if not torch.cuda.is_available():

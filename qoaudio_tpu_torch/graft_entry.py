@@ -137,9 +137,9 @@ def _numpy_pair(data: bytes) -> bytes:
 
 
 def _step_batch_encode(mesh, files):
-    """Step 3: the corpus layer's ``batch_encode`` under the mesh (chain
-    padding to the mesh multiple, per-file window layout, byte
-    reassembly); streams equal the oracle's single-file encodes."""
+    """Step 3: the corpus layer's ``batch_encode`` under the mesh (whole
+    files per device group, per-file window layout, stream assembly);
+    streams equal the oracle's single-file encodes."""
     streams = corpus.batch_encode(files, mesh=mesh)
     for (pcm, d), data in zip(files, streams):
         _require(data == codec.encode_all(pcm, d, backend="numpy"),

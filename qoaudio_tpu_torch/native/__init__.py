@@ -38,7 +38,7 @@ _allocator_tuned = False
 _SLICE_LEN = 20
 
 
-def _tune_allocator() -> None:
+def tune_allocator() -> None:
     """Keep large numpy buffers on the heap instead of per-call mmap.
 
     glibc serves >=128 KB allocations via mmap and unmaps them on free, so
@@ -50,8 +50,8 @@ def _tune_allocator() -> None:
     trimmed either: a corpus call's per-file arrays and output bytes run
     to GBs, and each call that freed them back to the kernel would fault
     them all in again on the next.  Process-global by nature, so: applied
-    only when the native engine is actually used, ``QOA_NO_MALLOPT=1``
-    opts out, and non-glibc platforms skip silently.
+    only when the native engine is loaded or a batched corpus call runs,
+    ``QOA_NO_MALLOPT=1`` opts out, and non-glibc platforms skip silently.
     """
     global _allocator_tuned
     if _allocator_tuned or os.environ.get("QOA_NO_MALLOPT"):
@@ -120,7 +120,7 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None:
             return _lib
-        _tune_allocator()
+        tune_allocator()
         path = _build()
         if path is None:
             _build_failed = True

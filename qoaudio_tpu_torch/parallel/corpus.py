@@ -3,28 +3,36 @@ over a mesh.
 
 Port of ``qoaudio_tpu/parallel/corpus.py``.  The channels (encode) or
 frame x channel chains (decode) of many files pack into one chain axis, so
-a whole corpus runs in a few kernel launches:
+a whole corpus runs in a few kernel launches.
 
-* ``batch_decode``    — all files' chains in one decode launch (one per
-  shard on a mesh);
-* ``batch_encode``    — all files' channels as encode chains, frames in
-  launches of ``chunk_frames`` with the LMS carried on the device (per
-  shard, on its own device, on a mesh); each file's PCM is uploaded once,
-  as it is interleaved, and laid out for the encoder on the device (one
-  gather a chunk); the streams are assembled on the device;
+One rule places files on devices, on every path: :func:`_file_groups`
+gives each device of the mesh whole files, balanced by encode work, so a
+file's chains always lie on one device.  Each non-empty group runs the
+path's one-device body on its own device, every group's work is issued
+before one fetch brings all their outputs back, and the host cuts them
+into files (:func:`_run_groups`).  A device is a one-device mesh: its one
+group is every file, in input order.
+
+* ``batch_decode``    — a group's chains in one decode launch, each file
+  interleaved on the device;
+* ``batch_encode``    — a group's channels as encode chains, frames in
+  launches of ``chunk_frames`` with the LMS carried on the device; the
+  group's PCM is uploaded once, as it is interleaved, and laid out for the
+  encoder on the device (one gather a chunk); its streams are assembled on
+  the device;
 * ``batch_transcode`` — decode, then relayout ON THE DEVICE into the
   encoder's layout (one ``index_select`` plus a ``permute``), then encode
   and assemble the streams: the PCM never leaves device memory, and only
-  the streams' bytes come back.  On a mesh whole files are partitioned over the
-  devices, so a file's PCM stays on one device.  A mixed-length corpus may
-  split into length buckets (``bucket="auto"``), and the staged device
-  pipeline can be handed out (``return_fused_handle=True``);
+  the streams' bytes come back.  A mixed-length corpus may split into
+  length buckets (``bucket="auto"``), each placed by the same rule, and
+  the staged device pipeline can be handed out
+  (``return_fused_handle=True``);
 * ``transcode_corpus`` — files in, report out.
 
 Every call takes exactly one of ``device`` and ``mesh``
-(``parallel/mesh.py``); a device is a one-device mesh.  A CPU device runs
-the kernels' plain PyTorch versions, a CUDA device runs the kernels, and
-nothing moves from one to the other.  Streams the device path cannot take
+(``parallel/mesh.py``).  A CPU device runs the kernels' plain PyTorch
+versions, a CUDA device runs the kernels, and nothing moves from one to
+the other.  Streams the device path cannot take
 (rejected by the arithmetic parser, or multi-frame with non-standard frame
 sizes) go to the host decode -> encode pair of the port's own codec (the
 native engine, else ``"torch"`` on the call's device), which gives the
@@ -37,15 +45,14 @@ table built on the host (``ops.assemble.file_table``); one fetch brings
 them back, and the host only cuts the buffer at the table's offsets.
 
 Under a running ``torch.profiler`` each host stage of a call is a span
-(``utils/timing.span``), once per stage and sub-call, never per file:
+(``utils/timing.span``), once per stage and device group, never per file:
 ``qoa.parse``, ``qoa.host_pair`` (the eligibility split and the files
 that take the host pair), ``qoa.stage`` (host arrays: file groups, the
 transcode staging, the encode checks and the flat PCM buffer) with
 ``qoa.bucket`` inside (the length-bucket choice), ``qoa.upload``
 (``put_arrays``), ``qoa.pipeline`` (queuing the device work),
 ``qoa.fetch`` with ``qoa.wait`` inside (``fetch_arrays``) and
-``qoa.assemble`` (cutting the fetched bytes into files, and the host
-assembly of files that straddle shards).
+``qoa.assemble`` (cutting the fetched bytes into files).
 """
 
 from __future__ import annotations
@@ -66,18 +73,16 @@ import torch
 from .. import bitstream as bs
 from .. import codec
 from .. import format as fmt
+from .. import native
 from ..errors import InvalidSamples
 from ..ops import assemble, cuda_assemble, cuda_decode, cuda_encode
 from ..ops.layout import frame_major
 from ..types import DecodedQoa, QoaDesc
 from ..utils.timing import span
 from ..utils.transfer import fetch_arrays, put_arrays
-from .mesh import (Mesh, decode_chains_sharded, encode_frames_sharded,
-                   gather_chains, round_up, shard_chain_arrays)
+from .mesh import Mesh
 
 host_pair_files = 0  # files that took the host decode -> encode pair
-# files batch_encode assembled on the host: their chains straddle shards
-host_assembled_files = 0
 
 # Length-bucketing cost model (_length_buckets), in padded lane-frames.  On
 # a CPU device: the JAX package's XLA model and constants, so the port
@@ -136,7 +141,8 @@ def _placement(device, mesh) -> Mesh:
 
 def _stage_words_be(parsed, offs, W: int, N: int, pin: bool = False):
     """Per-file raw BE words and LMS -> dense (words_be int64 (W, N),
-    state int32 (8, N)); chains past the files' stay zero.  The words stay
+    state int32 (8, N)) of the files' N chains back to back; a file's
+    windows past its own stay zero.  The words stay
     big-endian: the decode kernel byteswaps them itself, so the upload is
     the compressed payload.  With ``pin`` the two are torch tensors in
     pinned memory, which the caching host allocator hands out again call
@@ -144,29 +150,25 @@ def _stage_words_be(parsed, offs, W: int, N: int, pin: bool = False):
     words_t = torch.empty((W, N), dtype=torch.int64, pin_memory=pin)
     state_t = torch.empty((8, N), dtype=torch.int32, pin_memory=pin)
     words_be, state = words_t.numpy().view(np.uint64), state_t.numpy()
-    n = 0
     for p, off in zip(parsed, offs):
         k = p.n_frames * p.channels
         words_be[: p.max_windows, off : off + k] = p.words_be
         words_be[p.max_windows :, off : off + k] = 0
         state[:, off : off + k] = p.state
-        n = off + k
-    words_be[:, n:] = 0
-    state[:, n:] = 0
     return (words_t, state_t) if pin else (words_be.view(np.int64), state)
 
 
-def _stage_decode(parsed, multiple: int = 1, pin: bool = False):
-    """All files' decode chains -> (words_be, state) host arrays with the
-    chain axis padded to a multiple of ``multiple``, and each file's first
-    chain; pinned tensors with ``pin`` (:func:`_stage_words_be`)."""
+def _stage_decode(parsed, pin: bool = False):
+    """All files' decode chains -> (words_be, state) host arrays, and each
+    file's first chain; pinned tensors with ``pin``
+    (:func:`_stage_words_be`)."""
     W = max(p.max_windows for p in parsed)
     offs = []
     n = 0
     for p in parsed:
         offs.append(n)
         n += p.n_frames * p.channels
-    words_be, state = _stage_words_be(parsed, offs, W, round_up(n, multiple), pin)
+    words_be, state = _stage_words_be(parsed, offs, W, n, pin)
     return words_be, state, offs
 
 
@@ -182,51 +184,35 @@ def _interleave_file(dec_sub: torch.Tensor, p) -> torch.Tensor:
     return torch.cat([arr[:-1, : int(spf[0])].reshape(-1), last])
 
 
-def _stage_encode_pcm(files, offsets, mesh: Mesh, Np: int):
+def _stage_encode_pcm(files, device):
     """Every file's interleaved PCM, in input order, copied once into one
-    int16 host buffer (pinned on a CUDA mesh), each file followed by as
-    many zeros as it has channels.  Shard k's chains read one slice of
-    whole files, uploaded to its device as it is.  ``offsets``: each
-    file's first chain.  Returns the per-shard device slices and the int64
-    (3, Np) (base, stride, samples) of every chain, base taken from the
-    start of its shard's slice: chain j reads its sample t at
-    base_j + min(t, samples_j) * stride_j, a zero from its end on.
-    Padding chains read their slice's last zero."""
+    int16 host buffer (pinned on a CUDA device), each file followed by as
+    many zeros as it has channels, and uploaded to ``device`` as it is.
+    Returns the device buffer and the int64 (3, N) (base, stride, samples)
+    of every chain, the files' channels in order: chain j reads its sample
+    t at base_j + min(t, samples_j) * stride_j, a zero from its end on."""
     sizes = [d.samples * d.channels for _, d in files]
     starts = np.cumsum([0] + [n + d.channels for n, (_, d) in zip(sizes, files)])
-    total = int(starts[-1])
-    buf = torch.empty(total, dtype=torch.int16,
-                      pin_memory=mesh.devices[0].type == "cuda")
+    buf = torch.empty(int(starts[-1]), dtype=torch.int16,
+                      pin_memory=torch.device(device).type == "cuda")
     host = buf.numpy()
-    vec = np.zeros((3, Np), np.int64)  # base, stride, samples; padding: 0
-    for (pcm, d), s, n, j in zip(files, starts, sizes, offsets):
+    vec = np.empty((3, sum(d.channels for _, d in files)), np.int64)
+    j = 0
+    for (pcm, d), s, n in zip(files, starts, sizes):
         a = np.asarray(pcm)
         np.copyto(host[s : s + n].reshape(a.shape), a, casting="unsafe")
         host[s + n : s + n + d.channels] = 0
         vec[0, j : j + d.channels] = s + np.arange(d.channels)
         vec[1:, j : j + d.channels] = [[d.channels], [d.samples]]
-    N = offsets[-1] + files[-1][1].channels
-    k = Np // mesh.size
-    cuts = []
-    for c0 in range(0, Np, k):  # shard by shard: its chains c0 <= j < c0 + k
-        c1 = min(c0 + k, N)
-        if c0 < c1:
-            lo = int(starts[bisect.bisect_right(offsets, c0) - 1])
-            hi = int(starts[bisect.bisect_right(offsets, c1 - 1)])
-        else:  # padding only
-            lo, hi = total - 1, total
-        vec[0, c0:c1] -= lo
-        vec[0, max(c0, N) : c0 + k] = hi - lo - 1
-        cuts.append((lo, hi))
+        j += d.channels
     with span("qoa.upload"):
-        flats = [buf[lo:hi].to(dev, non_blocking=True)
-                 for (lo, hi), dev in zip(cuts, mesh.devices)]
-    return flats, vec
+        flat = buf.to(device, non_blocking=True)
+    return flat, vec
 
 
 def _encode_input(flat: torch.Tensor, vec: torch.Tensor, f0: int, f1: int,
                   W_use: int) -> torch.Tensor:
-    """Frames f0 <= f < f1 of one shard's encoder input, int16
+    """Frames f0 <= f < f1 of one device group's encoder input, int16
     (f1 - f0, W_use, 20, n), gathered on the device from its flat PCM:
     x[f, w, k, j] = flat[base_j + min(t, samples_j) * stride_j] for
     t = f*5120 + w*20 + k, zero from chain j's end on.  The index is
@@ -246,24 +232,22 @@ def _encode_input(flat: torch.Tensor, vec: torch.Tensor, f0: int, f1: int,
 
 @dataclasses.dataclass
 class _EncodeStaged:
-    """What ``_stage_encode`` leaves for the device: each file's first
-    chain, the real chain count ``N``, the frames and windows the chunks
-    run, the frames every chain has full, and the per-shard flat PCM,
-    chain vectors and start states."""
+    """What ``_stage_encode`` leaves on one device: each file's first
+    chain, the frames and windows the chunks run, the frames every chain
+    has full, and the flat PCM, chain vectors and start state."""
 
     offsets: List[int]
-    N: int
     F_max: int
     W_use: int
     f_full: int
-    flats: list
-    vecs: list
-    states: list
+    flat: torch.Tensor
+    vec: torch.Tensor
+    state: torch.Tensor
 
 
-def _stage_encode(files, mesh: Mesh, state=None) -> _EncodeStaged:
+def _stage_encode(files, device, state=None) -> _EncodeStaged:
     """The encode's host side, inside the caller's ``qoa.stage``: checks,
-    the start state, the flat PCM buffer and the uploads."""
+    the start state, the flat PCM buffer and the uploads to ``device``."""
     for pcm, desc in files:
         codec._validate_desc(desc)
         if np.asarray(pcm).size != desc.samples * desc.channels:
@@ -282,63 +266,40 @@ def _stage_encode(files, mesh: Mesh, state=None) -> _EncodeStaged:
     for _, d in files:
         offsets.append(n)
         n += d.channels
-    N = n
-    Np = round_up(N, mesh.size)  # padding chains run on lens 0, then drop
     f_full = min(d.samples // fmt.QOA_FRAME_LEN for _, d in files)
 
-    start = codec.initial_encoder_state(0, Np)
+    start = codec.initial_encoder_state(0, n)
     if state is not None:
-        start[:, :N] = state
-    flats, vec = _stage_encode_pcm(files, offsets, mesh, Np)
-    states, vecs = shard_chain_arrays(mesh, start, vec)
-    return _EncodeStaged(offsets, N, F_max, W_use, f_full, flats, vecs, states)
+        start[:] = state
+    flat, vec = _stage_encode_pcm(files, device)
+    start, vec = put_arrays([start, vec], device)
+    return _EncodeStaged(offsets, F_max, W_use, f_full, flat, vec, start)
 
 
 def _cat(parts: List[torch.Tensor]) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _encode_run(st: _EncodeStaged, mesh: Mesh, chunk_frames: int):
-    """The staged encode on the devices: each chunk of ``chunk_frames``
-    frames laid out for the encoder on the shard's own device
-    (``_encode_input``), which runs it, carrying its LMS there; leading
-    all-full chunks take the full-window kernel.  Returns the per-shard
-    device tensors: states (8, n), snaps (F_max, 8, n), words
-    (F_max, W_use, n) int64 logical."""
-    states = st.states
-    snaps, words = [], []  # per chunk, the per-shard device tensors
+def _encode_run(st: _EncodeStaged, chunk_frames: int):
+    """The staged encode on its device: each chunk of ``chunk_frames``
+    frames laid out for the encoder there (``_encode_input``), which runs
+    it, carrying its LMS; leading all-full chunks take the full-window
+    kernel.  Returns device tensors: state (8, N), snaps (F_max, 8, N),
+    words (F_max, W_use, N) int64 logical."""
+    state = st.state
+    snaps, words = [], []
     for f0 in range(0, st.F_max, chunk_frames):
         f1 = min(f0 + chunk_frames, st.F_max)
         with span("qoa.pipeline"):
-            xs = [_encode_input(x, v, f0, f1, st.W_use) for x, v in zip(st.flats, st.vecs)]
-            lens = None if f1 <= st.f_full else [
-                _transcode_lens(v[2], f0, f1, st.W_use) for v in st.vecs]
-            states, s, w = encode_frames_sharded(mesh, states, xs, lens)
+            x = _encode_input(st.flat, st.vec, f0, f1, st.W_use)
+            if f1 <= st.f_full:
+                state, s, w = cuda_encode.encode_frames_full(state, x)
+            else:
+                state, s, w = cuda_encode.encode_frames(
+                    state, x, _transcode_lens(st.vec[2], f0, f1, st.W_use))
         snaps.append(s)
         words.append(w)
-    per_shard = range(mesh.size)
-    return (states, [_cat([c[k] for c in snaps]) for k in per_shard],
-            [_cat([c[k] for c in words]) for k in per_shard])
-
-
-def _encode_sharded(files, mesh: Mesh, chunk_frames: int, state=None):
-    """Encode many PCM streams, each channel one chain, the chain axis
-    padded to a multiple of the mesh size and sharded over it.
-
-    The files' PCM is copied once into one flat buffer and each shard's
-    slice uploaded once; the chunks run on the shards' devices
-    (``_encode_run``).  ``state`` is the int32 (8, N) LMS the chains
-    start from (default: the encoder's initial state).  Returns host
-    arrays (state (8, N), snaps (F, 8, N), words (F, W, N) uint64 logical)
-    and each file's first chain.
-    """
-    with span("qoa.stage"):
-        st = _stage_encode(files, mesh, state)
-    states, snaps, words = _encode_run(st, mesh, chunk_frames)
-    N = st.N
-    snaps, words, state = (gather_chains(t) for t in (snaps, words, states))
-    return (state[:, :N], snaps[..., :N], words[..., :N].view(np.uint64),
-            st.offsets)
+    return state, _cat(snaps), _cat(words)
 
 
 def encode_chains(
@@ -347,49 +308,22 @@ def encode_chains(
     chunk_frames: int = 64,
     state: Optional[np.ndarray] = None,
 ):
-    """Encode many PCM streams, each channel one chain, on ``device``.
+    """Encode many PCM streams, each channel one chain, on ``device``: the
+    staging and chunked encode of ``batch_encode``'s device group, with no
+    assembly.
 
     ``state`` is the int32 (8, N) LMS the chains start from (N = all
     files' channels in order; default: the encoder's initial state).
     Returns host arrays (state (8, N) after the last sample, snaps
-    (F, 8, N), words (F, W, N) uint64 logical) and each file's first
-    chain.  The last frame's padding windows pass the LMS through, so the
-    returned state is the one after each file's last real sample.
+    (F, 8, N), words (F, W, N) uint64 logical), fetched together, and each
+    file's first chain.  The last frame's padding windows pass the LMS
+    through, so the returned state is the one after each file's last real
+    sample.
     """
-    return _encode_sharded(files, _placement(device, None), chunk_frames, state)
-
-
-def _shard_tables(files, offsets: List[int], mesh: Mesh, n_chains: int):
-    """Which shard assembles which file: a file whose chains lie in one
-    shard of ``n_chains`` chains is assembled there, from its chains'
-    place in the shard.  Returns (shard, file indices, table, bytes,
-    frames) of every shard that holds a whole file, and the files whose
-    chains straddle two or more shards."""
-    C = np.array([d.channels for _, d in files], np.int64)
-    offs = np.asarray(offsets, np.int64)
-    first = offs // n_chains
-    whole = first == (offs + C - 1) // n_chains
-    plans = []
-    for k in range(mesh.size):
-        idx = np.flatnonzero(whole & (first == k))
-        if len(idx):
-            ds = [files[i][1] for i in idx]
-            plans.append((k, idx.tolist(), *assemble.file_table(
-                C[idx], [d.sample_rate for d in ds], [d.samples for d in ds],
-                offs[idx] - k * n_chains)))
-    return plans, np.flatnonzero(~whole).tolist()
-
-
-def _straddling_pieces(d, off: int, n_chains: int, snaps, words):
-    """A straddling file's chains, shard by shard: (snaps, words) device
-    slices of its real frames, to be joined on the host."""
-    F = -(-d.samples // fmt.QOA_FRAME_LEN)
-    pieces = []
-    for k in range(off // n_chains, (off + d.channels - 1) // n_chains + 1):
-        lo = max(off, k * n_chains) - k * n_chains
-        hi = min(off + d.channels, (k + 1) * n_chains) - k * n_chains
-        pieces += [snaps[k][:F, :, lo:hi], words[k][:F, :, lo:hi]]
-    return pieces
+    with span("qoa.stage"):
+        st = _stage_encode(files, _placement(device, None).devices[0], state)
+    state, snaps, words = fetch_arrays(_encode_run(st, chunk_frames))
+    return state, snaps, words.view(np.uint64), st.offsets
 
 
 def _cut(buf: np.ndarray, offsets) -> List[bytes]:
@@ -400,6 +334,57 @@ def _cut(buf: np.ndarray, offsets) -> List[bytes]:
     return [mv[a:b].tobytes() for a, b in zip(offsets, ends)]
 
 
+def _assemble(offsets: List[int], buf: np.ndarray) -> List[bytes]:
+    """A device group's fetched streams -> each file's bytes."""
+    with span("qoa.assemble"):
+        return _cut(buf, offsets)
+
+
+def _file_groups(frames, work, n_groups: int) -> List[List[int]]:
+    """The one placement rule of the corpus layer: whole files over
+    ``n_groups`` devices, balancing encode work.  ``frames`` and ``work``
+    are each file's frame count and samples x channels.  Files go longest
+    chain first (then most work, then input order) to the device with the
+    least work so far; each group keeps input order.  One device takes
+    every file, in input order."""
+    if n_groups == 1:
+        return [list(range(len(frames)))]
+    order = sorted(range(len(frames)), key=lambda i: (-frames[i], -work[i], i))
+    load = [0] * n_groups
+    groups: List[List[int]] = [[] for _ in range(n_groups)]
+    for i in order:
+        g = min(range(n_groups), key=lambda k: (load[k], k))
+        groups[g].append(i)
+        load[g] += work[i]
+    return [sorted(g) for g in groups]
+
+
+def _parsed_load(parsed):
+    """(frames, samples x channels) of each parsed stream, for
+    :func:`_file_groups`."""
+    return ([p.n_frames for p in parsed],
+            [int(p.samples_per_frame.sum()) * p.channels for p in parsed])
+
+
+def _run_groups(mesh: Mesh, groups, launch) -> list:
+    """Every non-empty device group's work issued, then one fetch and the
+    cut.  ``launch(device, idx)`` stages and queues the files ``idx`` on
+    ``device`` and returns (the device tensor of their output, a function
+    from its fetched array to their results in order).  Returns each
+    file's result; a device with no files launches nothing.  The outputs
+    stay on a heap that is never trimmed (:func:`native.tune_allocator`):
+    ``batch_encode`` parses no stream, so without this a process that only
+    encodes faults its bytes in afresh, call after call, until its heap
+    settles."""
+    native.tune_allocator()
+    runs = [(idx, *launch(dev, idx)) for dev, idx in zip(mesh.devices, groups) if idx]
+    out: list = [None] * sum(len(g) for g in groups)
+    for (idx, _, cut), got in zip(runs, fetch_arrays([t for _, t, _ in runs])):
+        for i, r in zip(idx, cut(got)):
+            out[i] = r
+    return out
+
+
 def batch_encode(
     files: Sequence[tuple[np.ndarray, QoaDesc]],
     device=None,
@@ -407,54 +392,41 @@ def batch_encode(
     mesh: Optional[Mesh] = None,
 ) -> List[bytes]:
     """Encode many PCM streams as one batched chain axis on ``device``, or
-    sharded over ``mesh``.
+    over ``mesh``, each device with whole files (:func:`_file_groups`).
 
     Returns QOA bytes per file, each bit-exact with single-file encoding
-    (chains are independent; zero-length padding windows are inert).  The
-    streams are assembled on the device (``cuda_assemble``): each shard
-    writes the bytes of the files whose chains it holds whole, and only
-    bytes come back.  A file whose channels straddle two shards is
-    assembled on the host from its fetched chains; the module integer
-    ``host_assembled_files`` counts those.
+    (chains are independent; zero-length padding windows are inert).  A
+    file's chains lie on one device, whose one assembly launch
+    (``cuda_assemble``) writes the bytes of all its files; only bytes come
+    back.  Bytes do not depend on the placement.
     """
-    global host_assembled_files
     on = _placement(device, mesh)
     if not files:
         return []
+
+    def launch(dev, idx):
+        sub = [files[i] for i in idx]
+        with span("qoa.stage"):
+            st = _stage_encode(sub, dev)
+            table, n_bytes, n_frames = assemble.file_table(
+                [d.channels for _, d in sub], [d.sample_rate for _, d in sub],
+                [d.samples for _, d in sub], st.offsets)
+            (t,) = put_arrays([table], dev)
+        _, snaps, words = _encode_run(st, chunk_frames)
+        with span("qoa.pipeline"):
+            buf = cuda_assemble.assemble_streams(snaps, words, t, n_bytes, n_frames)
+        return buf, functools.partial(_assemble, table[assemble.OFFSET].tolist())
+
     with span("qoa.stage"):
-        st = _stage_encode(files, on)
-        n_chains = round_up(st.N, on.size) // on.size
-        plans, straddling = _shard_tables(files, st.offsets, on, n_chains)
-        tables = [put_arrays([t], on.devices[k])[0] for k, _, t, _, _ in plans]
-    _, snaps, words = _encode_run(st, on, chunk_frames)
-    with span("qoa.pipeline"):
-        bufs = [cuda_assemble.assemble_streams(snaps[k], words[k], t, n_bytes, n_frames)
-                for (k, _, _, n_bytes, n_frames), t in zip(plans, tables)]
-        pieces = [_straddling_pieces(files[i][1], st.offsets[i], n_chains, snaps, words)
-                  for i in straddling]
-    fetched = fetch_arrays(bufs + [t for ps in pieces for t in ps])
-    out: List[Optional[bytes]] = [None] * len(files)
-    with span("qoa.assemble"):
-        for (_, idx, table, _, _), buf in zip(plans, fetched):
-            for i, data in zip(idx, _cut(buf, table[assemble.OFFSET].tolist())):
-                out[i] = data
-        pos = len(bufs)
-        for i, ps in zip(straddling, pieces):
-            got = fetched[pos : pos + len(ps)]
-            pos += len(ps)
-            d = files[i][1]
-            out[i] = bs.assemble_stream_bytes(
-                d.channels, d.sample_rate, d.samples,
-                np.concatenate(got[0::2], axis=-1),
-                np.concatenate(got[1::2], axis=-1).view(np.uint64))
-        host_assembled_files += len(straddling)
-    return out
+        groups = _file_groups([-(-d.samples // fmt.QOA_FRAME_LEN) for _, d in files],
+                              [d.samples * d.channels for _, d in files], on.size)
+    return _run_groups(on, groups, launch)
 
 
 def batch_decode(streams: Sequence[bytes], device=None,
                  mesh: Optional[Mesh] = None) -> List[DecodedQoa]:
     """Decode many QOA streams in ONE decode launch on ``device``, or one
-    launch per shard over ``mesh``.
+    per device group over ``mesh``.
 
     Every frame header carries its LMS seed, so the chains of all files
     (frames x channels each) concatenate into one chain axis.  Streams the
@@ -482,38 +454,32 @@ def batch_decode(streams: Sequence[bytes], device=None,
     return outs
 
 
-def _split_files(parts, parsed, offs) -> List[DecodedQoa]:
-    """Decoded chains, split along the chain axis over shards (one part
-    when one device decoded them all) -> each file's trimmed interleaved
-    PCM.  A file interleaves on the device that holds its chains (on the
-    host when they straddle two shards); each device's PCM is fetched in
-    one copy, one wait for all."""
-    starts = np.cumsum([0] + [t.shape[2] for t in parts]).tolist()
-    per_device = {}  # device -> [(file index, flat PCM tensor)]
-    for i, (p, off) in enumerate(zip(parsed, offs)):
-        end = off + p.n_frames * p.channels
-        pieces = [t[: p.max_windows, :, max(off - a, 0) : end - a]
-                  for t, a, b in zip(parts, starts, starts[1:]) if a < end and off < b]
-        sub = pieces[0] if len(pieces) == 1 else torch.cat([x.cpu() for x in pieces], 2)
-        per_device.setdefault(sub.device, []).append((i, _interleave_file(sub, p)))
-    groups = list(per_device.values())
-    pcms = fetch_arrays([torch.cat([t for _, t in g]) for g in groups])
-    samples: List[Optional[np.ndarray]] = [None] * len(parsed)
-    for g, pcm in zip(groups, pcms):
-        pos = 0
-        for i, t in g:
-            samples[i] = pcm[pos : pos + t.numel()]
-            pos += t.numel()
-    return [DecodedQoa(num_channels=p.channels, sample_rate=p.sample_rate, samples=x)
-            for p, x in zip(parsed, samples)]
+def _split_files(pcm: np.ndarray, parsed, sizes) -> List[DecodedQoa]:
+    """One device group's fetched PCM, its files' trimmed interleaved
+    samples back to back (``sizes`` each), -> each file's decoded stream.
+    A file's chains lie on one device, which interleaves it whole."""
+    starts = np.cumsum([0] + list(sizes)).tolist()
+    return [DecodedQoa(num_channels=p.channels, sample_rate=p.sample_rate,
+                       samples=pcm[a:b])
+            for p, a, b in zip(parsed, starts, starts[1:])]
 
 
 def decode_parsed(parsed, device=None, mesh: Optional[Mesh] = None) -> List[DecodedQoa]:
     """Decode streams parsed by ``bs.parse_file_arrays`` in ONE decode
-    launch on ``device``, or one per shard over ``mesh``."""
+    launch on ``device``, or one per device group over ``mesh``, each file
+    interleaved on its device; one fetch brings every group's PCM back."""
     on = _placement(device, mesh)
-    words_be, state, offs = _stage_decode(parsed, on.size)
-    return _split_files(decode_chains_sharded(on, state, words_be), parsed, offs)
+
+    def launch(dev, idx):
+        sub = [parsed[i] for i in idx]
+        words_be, state, offs = _stage_decode(sub)
+        dec = cuda_decode.decode_chains_words(*put_arrays([state, words_be], dev))
+        pcms = [_interleave_file(dec[: p.max_windows, :, off : off + p.n_frames * p.channels], p)
+                for p, off in zip(sub, offs)]
+        return torch.cat(pcms), functools.partial(
+            _split_files, parsed=sub, sizes=[t.numel() for t in pcms])
+
+    return _run_groups(on, _file_groups(*_parsed_load(parsed), on.size), launch)
 
 
 def _transcode_lens(samples: torch.Tensor, f0: int, f1: int, W_enc: int):
@@ -706,12 +672,6 @@ def _transcode_pipeline(dstate, words_be, idx, samples, state, table, *,
                                            n_frames),)
 
 
-def _assemble_transcode(offsets: List[int], buf: np.ndarray) -> List[bytes]:
-    """Step 3: the fetched bytes of every file -> each file's bytes."""
-    with span("qoa.assemble"):
-        return _cut(buf, offsets)
-
-
 def _stage_transcode(parsed, device, chunk_frames: int) -> TranscodeFusedHandle:
     """Step 1 of a transcode: stage the files' words, the relayout and the
     assembly table on the host and upload them to ``device``; returns the
@@ -750,44 +710,25 @@ def _stage_transcode(parsed, device, chunk_frames: int) -> TranscodeFusedHandle:
     )
     return TranscodeFusedHandle(
         fn, tuple(args),
-        functools.partial(_assemble_transcode, table[assemble.OFFSET].tolist()))
-
-
-def _file_groups(parsed, n_groups: int) -> List[List[int]]:
-    """Partition files over ``n_groups`` devices, balancing encode work:
-    files go longest chain first (then samples x channels) to the device
-    with the least work so far.  Each group keeps input order."""
-    work = [int(p.samples_per_frame.sum()) * p.channels for p in parsed]
-    order = sorted(range(len(parsed)),
-                   key=lambda i: (-parsed[i].n_frames, -work[i], i))
-    load = [0] * n_groups
-    groups: List[List[int]] = [[] for _ in range(n_groups)]
-    for i in order:
-        g = min(range(n_groups), key=lambda k: (load[k], k))
-        groups[g].append(i)
-        load[g] += work[i]
-    return [sorted(g) for g in groups]
+        functools.partial(_assemble, table[assemble.OFFSET].tolist()))
 
 
 def _transcode_groups(parsed, mesh: Mesh, chunk_frames: int):
     """Every device group's pipeline issued before any fetch, then one
     fetch and the assembly.  Returns (bytes per file, handle per group)."""
-    runs = []
+    handles = []
+
+    def launch(dev, idx):
+        with span("qoa.stage"):
+            h = _stage_transcode([parsed[i] for i in idx], dev, chunk_frames)
+        with span("qoa.pipeline"):
+            (buf,) = h()
+        handles.append(h)
+        return buf, h.assemble
+
     with span("qoa.stage"):
-        groups = _file_groups(parsed, mesh.size)
-    for dev, idx in zip(mesh.devices, groups):
-        if idx:  # a device with no files launches nothing
-            with span("qoa.stage"):
-                h = _stage_transcode([parsed[i] for i in idx], dev, chunk_frames)
-            with span("qoa.pipeline"):
-                (buf,) = h()
-            runs.append((idx, h, buf))
-    fetched = fetch_arrays([buf for _, _, buf in runs])
-    outs: List[Optional[bytes]] = [None] * len(parsed)
-    for (idx, h, _), buf in zip(runs, fetched):
-        for i, data in zip(idx, h.assemble(buf)):
-            outs[i] = data
-    return outs, [h for _, h, _ in runs]
+        groups = _file_groups(*_parsed_load(parsed), mesh.size)
+    return _run_groups(mesh, groups, launch), handles
 
 
 def _transcode(streams, parsed, mesh: Mesh, chunk_frames: int, bucket,
@@ -849,7 +790,8 @@ def batch_transcode(
     which gives identical bytes.
 
     With ``mesh`` whole files are partitioned over its devices, balanced
-    by encode work, and each device runs the pipeline on its own files:
+    by encode work (:func:`_file_groups`, the rule of every batched path),
+    and each device runs the pipeline on its own files:
     every device's launches are issued before anything is fetched, and no
     PCM crosses between devices.  Bytes do not depend on the partition.
 

@@ -1,24 +1,31 @@
-"""Device lists for sharding the corpus chain axis over several devices.
+"""The devices a corpus call runs on, and the chain-sharded kernels.
 
-Port of ``qoaudio_tpu/parallel/mesh.py``.  The codec's chains are
-independent, so the work needs no collectives: the chain axis splits into
-one contiguous part per device, each part runs the kernels on its own
-device, and only the outputs are gathered on the host.  As with JAX's
-single-controller mesh, one process drives every device: the kernel
-wrappers launch on the tensors' own device and its current stream without
-waiting, so one thread issues every device's launches back to back and the
-devices run concurrently.
+Port of ``qoaudio_tpu/parallel/mesh.py``.  A :class:`Mesh` lists the
+devices of a call (:func:`make_mesh`).  The corpus layer
+(``parallel/corpus.py``) gives each of them whole files, so a file's
+chains always lie on one device; it uses nothing else of this module.  As
+with JAX's single-controller mesh, one process drives every device: the
+kernel wrappers launch on the tensors' own device and its current stream
+without waiting, so one thread issues every device's launches back to back
+and the devices run concurrently.
 
-A ``Mesh`` may list a device more than once: its shards then run in turn
-on that device's stream (``("cpu",) * 4`` stands in for a 4-device mesh in
+A ``Mesh`` may list a device more than once: its work then runs in turn on
+that device's stream (``("cpu",) * 4`` stands in for a 4-device mesh in
 the tests, ``("cuda:0",) * 4`` splits the work on one card).  On a CPU
-device a shard runs the kernels' plain versions, on a CUDA device the
-kernels, and nothing moves from one to the other.
+device the kernels' plain versions run, on a CUDA device the kernels, and
+nothing moves from one to the other.
 
-There is no 128-lane padding, ``pick_tile`` or ``subs``/``wblk`` here: the
-CUDA kernels take any chain count.  ``encode_frames_sharded`` and
-``decode_chains_sharded`` stand for both of JAX's pairs, the XLA functions
-(``mesh.py:50, :63``) and the Pallas ``shard_map`` ones (``:71, :99``).
+The rest are the counterparts of the JAX package's mesh functions, which
+the entry module's dry run (``graft_entry.py``, steps 1-2) and the tests
+hold against them: :func:`shard_chain_arrays` splits the chain axis into
+one contiguous part per device, :func:`encode_frames_sharded` and
+:func:`decode_chains_sharded` run each part on its device, and
+:func:`gather_chains` joins the outputs on the host.  The codec's chains
+are independent, so none needs a collective.  There is no 128-lane
+padding, ``pick_tile`` or ``subs``/``wblk`` here: the CUDA kernels take
+any chain count.  ``encode_frames_sharded`` and ``decode_chains_sharded``
+stand for both of JAX's pairs, the XLA functions (``mesh.py:50, :63``) and
+the Pallas ``shard_map`` ones (``:71, :99``).
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from ..utils.transfer import fetch_arrays, put_arrays
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The devices the chain axis splits over, in shard order."""
+    """The devices of a call, in order."""
 
     devices: tuple
 

@@ -91,17 +91,19 @@ def test_batch_encode_full_chunks_and_tails():
     assert got == [codec.encode_all(p, d, backend="native") for p, d in files]
 
 
-@pytest.mark.parametrize("devices, eight, straddling", [
-    (1, False, 0),  # one device assembles every file
-    (2, False, 1),  # chains 0 | 1 2 | 3 on shards of 2: the stereo file straddles
-    (4, False, 1),  # one chain a shard: the stereo file over two
-    (8, True, 2),  # shards of 2 chains: the stereo file, and an 8-channel one over four
+@pytest.mark.parametrize("devices, eight, groups", [
+    (1, False, 1),  # one device assembles every file
+    (2, False, 2),  # 4 chains over 2 devices: the stereo file whole on one of them
+    (4, False, 3),  # 3 files over 4 devices: one device holds none and launches nothing
+    (8, True, 4),  # 4 files over 8 devices: the 8-channel file whole on one of them
 ])
-def test_batch_encode_assembles_straddling_files_on_the_host(devices, eight, straddling):
-    """On a mesh each shard assembles the files whose chains it holds
-    whole; a file whose channels straddle a shard cut is assembled on the
-    host from its own chains, and counted.  The bytes are the native
-    engine's either way."""
+def test_batch_encode_assembles_straddling_files_on_the_host(devices, eight, groups,
+                                                             monkeypatch):
+    """On a mesh every device takes whole files, so no file's channels
+    straddle two devices and none is assembled on the host: each non-empty
+    device group assembles all of its files in one launch, over exactly
+    its files' chains.  The bytes are the native engine's on every mesh."""
+    from qoaudio_tpu_torch.ops import cuda_assemble
     from qoaudio_tpu_torch.parallel import make_mesh
 
     if not native.available():
@@ -111,10 +113,19 @@ def test_batch_encode_assembles_straddling_files_on_the_host(devices, eight, str
              for i, (n, c) in enumerate(shapes)]
     where = (dict(device="cpu") if devices == 1
              else dict(mesh=make_mesh(devices=("cpu",) * devices)))
-    before = corpus.host_assembled_files
+    launched = []  # (chains, files) of each assembly
+    real = cuda_assemble.assemble_streams
+
+    def count(snaps, words, table, *rest):
+        launched.append((words.shape[2], table.shape[1]))
+        return real(snaps, words, table, *rest)
+
+    monkeypatch.setattr(cuda_assemble, "assemble_streams", count)
     got = corpus.batch_encode(files, **where)
     assert got == [codec.encode_all(p, d, backend="native") for p, d in files]
-    assert corpus.host_assembled_files == before + straddling
+    assert len(launched) == groups
+    assert sum(n for n, _ in launched) == sum(c for _, c in shapes)
+    assert sum(k for _, k in launched) == len(files)
 
 
 def _as_is(pcm, desc):
@@ -167,28 +178,14 @@ def test_batch_encode_relayout_edges(name, shapes, form, chunk):
     assert got == jax_corpus.batch_encode(files, chunk_frames=chunk)
 
 
-@pytest.mark.parametrize("k", [1, 3])
-@pytest.mark.parametrize("f0, f1", [(0, 3), (1, 3), (2, 3)])
-def test_encode_input_equals_the_host_cube(k, f0, f1):
-    """One chunk's device-built input and lens, shard by shard, equal the
-    chain-minor cube and lens filled from ``layout_pcm`` element for
-    element, zeros and padding chains included."""
-    import torch
-
+def _group_cube(files, f0, f1):
+    """Frames f0 <= f < f1 of ``files``' chain-minor encoder input and lens,
+    filled from ``layout_pcm``: the host cube the device gather replaces."""
     from qoaudio_tpu_torch import codec as tcodec
-    from qoaudio_tpu_torch.parallel import mesh as tmesh
-    from qoaudio_tpu_torch.types import QoaDesc as TDesc
 
-    # 13 chains: on 3 shards the last holds two padding chains beside real ones
-    shapes = [(5120 * 2 + 133, 2), (5120 + 1, 1), (61, 8), (5120 * 3, 2)]
-    files = [(make_noise(n, c, seed=i), TDesc(c, 44100, n)) for i, (n, c) in enumerate(shapes)]
-    N = sum(c for _, c in shapes)
-    m = tmesh.make_mesh(devices=("cpu",) * k)
-    Np = tmesh.round_up(N, k)
-    W = fmt.QOA_SLICES_PER_FRAME
-
-    cx = np.zeros((f1 - f0, W, fmt.QOA_SLICE_LEN, Np), np.int16)
-    cl = np.zeros((f1 - f0, W, Np), np.int32)
+    N = sum(d.channels for _, d in files)
+    cx = np.zeros((f1 - f0, fmt.QOA_SLICES_PER_FRAME, fmt.QOA_SLICE_LEN, N), np.int16)
+    cl = np.zeros((f1 - f0, fmt.QOA_SLICES_PER_FRAME, N), np.int32)
     off = 0
     for pcm, d in files:
         xf, lf, F = tcodec.layout_pcm(pcm, d.channels, d.samples)
@@ -197,16 +194,37 @@ def test_encode_input_equals_the_host_cube(k, f0, f1):
             cx[:n, :, :, off : off + d.channels] = xf[f0 : f0 + n]
             cl[:n, :, off : off + d.channels] = lf[f0 : f0 + n, :, None]
         off += d.channels
+    return cx, cl
 
-    flats, vec = corpus._stage_encode_pcm(
-        files, np.cumsum([0] + [c for _, c in shapes[:-1]]).tolist(), m, Np)
-    assert len(flats) == k
-    s = Np // k
-    vecs = [torch.from_numpy(vec[:, i * s : (i + 1) * s]) for i in range(k)]
-    x = torch.cat([corpus._encode_input(f, v, f0, f1, W) for f, v in zip(flats, vecs)], -1)
-    lens = torch.cat([corpus._transcode_lens(v[2], f0, f1, W) for v in vecs], -1)
-    assert x.dtype == torch.int16 and np.array_equal(x.numpy(), cx)
-    assert lens.dtype == torch.int32 and np.array_equal(lens.numpy(), cl)
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("f0, f1", [(0, 3), (1, 3), (2, 3)])
+def test_encode_input_equals_the_host_cube(k, f0, f1):
+    """One chunk's device-built input and lens, device group by device
+    group over ``k`` devices, equal the chain-minor cube and lens filled
+    from ``layout_pcm`` for that group's files, element for element,
+    zeros included."""
+    import torch
+
+    from qoaudio_tpu_torch.types import QoaDesc as TDesc
+
+    # 13 chains; over 3 devices each group holds whole files of 2 to 8 chains
+    shapes = [(5120 * 2 + 133, 2), (5120 + 1, 1), (61, 8), (5120 * 3, 2)]
+    files = [(make_noise(n, c, seed=i), TDesc(c, 44100, n)) for i, (n, c) in enumerate(shapes)]
+    W = fmt.QOA_SLICES_PER_FRAME
+    groups = corpus._file_groups([-(-n // fmt.QOA_FRAME_LEN) for n, _ in shapes],
+                                 [n * c for n, c in shapes], k)
+    assert sorted(i for g in groups for i in g) == list(range(len(files)))
+    assert sum(1 for g in groups if g) == k
+    for g in groups:
+        sub = [files[i] for i in g]
+        flat, vec = corpus._stage_encode_pcm(sub, "cpu")
+        v = torch.from_numpy(vec)
+        x = corpus._encode_input(flat, v, f0, f1, W)
+        lens = corpus._transcode_lens(v[2], f0, f1, W)
+        cx, cl = _group_cube(sub, f0, f1)
+        assert x.dtype == torch.int16 and np.array_equal(x.numpy(), cx)
+        assert lens.dtype == torch.int32 and np.array_equal(lens.numpy(), cl)
 
 
 def test_encode_input_builds_its_index_a_few_frames_at_a_time(monkeypatch):
@@ -214,15 +232,16 @@ def test_encode_input_builds_its_index_a_few_frames_at_a_time(monkeypatch):
     same as with room for all of it."""
     import torch
 
-    from qoaudio_tpu_torch.parallel import mesh as tmesh
     from qoaudio_tpu_torch.types import QoaDesc as TDesc
 
-    files = [(make_noise(5120 * 3 + 11, 2, seed=5), TDesc(2, 44100, 5120 * 3 + 11))]
-    flats, vec = corpus._stage_encode_pcm(files, [0], tmesh.make_mesh(devices=("cpu",)), 2)
+    files = [(make_noise(5120 * 3 + 11, 2, seed=5), TDesc(2, 44100, 5120 * 3 + 11)),
+             (make_noise(700, 1, seed=6), TDesc(1, 44100, 700))]
+    flat, vec = corpus._stage_encode_pcm(files, "cpu")
     v = torch.from_numpy(vec)
-    whole = corpus._encode_input(flats[0], v, 0, 4, fmt.QOA_SLICES_PER_FRAME)
+    whole = corpus._encode_input(flat, v, 0, 4, fmt.QOA_SLICES_PER_FRAME)
+    assert np.array_equal(whole.numpy(), _group_cube(files, 0, 4)[0])
     monkeypatch.setattr(corpus, "_GATHER_ELEMENTS", 1)
-    assert torch.equal(corpus._encode_input(flats[0], v, 0, 4, fmt.QOA_SLICES_PER_FRAME), whole)
+    assert torch.equal(corpus._encode_input(flat, v, 0, 4, fmt.QOA_SLICES_PER_FRAME), whole)
 
 
 def test_batch_transcode_chunks_carry_state_and_use_full_path(monkeypatch):

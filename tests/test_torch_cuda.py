@@ -294,7 +294,7 @@ def test_batch_encode_fold_relayout_on_card(cuda):
     8-channel file: ``batch_encode`` on the card (and over the card listed
     twice) gives the native engine's bytes, and the chunk's input built on
     the card equals the chain-minor cube filled from ``layout_pcm``."""
-    from qoaudio_tpu_torch.parallel import make_mesh, mesh as tmesh
+    from qoaudio_tpu_torch.parallel import make_mesh
 
     if not native.available():
         pytest.skip("native engine unavailable")
@@ -306,19 +306,18 @@ def test_batch_encode_fold_relayout_on_card(cuda):
     assert corpus.batch_encode(files, cuda) == want
     assert corpus.batch_encode(files, mesh=make_mesh(devices=("cuda:0",) * 2)) == want
 
-    Np, F, W = 50, 44, 256
-    cx = np.zeros((F, W, 20, Np), np.int16)
-    cl = np.zeros((F, W, Np), np.int32)
+    N, F, W = 50, 44, 256
+    cx = np.zeros((F, W, 20, N), np.int16)
+    cl = np.zeros((F, W, N), np.int32)
     off = 0
     for pcm, d in files:
         xf, lf, Fi = codec.layout_pcm(pcm, d.channels, d.samples)
         cx[:Fi, :, :, off : off + d.channels] = xf
         cl[:Fi, :, off : off + d.channels] = lf[:, :, None]
         off += d.channels
-    flats, vec = corpus._stage_encode_pcm(
-        files, np.cumsum([0] + [c for _, c in shapes[:-1]]).tolist(), tmesh.Mesh((cuda,)), Np)
+    flat, vec = corpus._stage_encode_pcm(files, cuda)
     v = torch.from_numpy(vec).to(cuda)
-    x = corpus._encode_input(flats[0], v, 0, F, W)
+    x = corpus._encode_input(flat, v, 0, F, W)
     assert x.device.type == "cuda"
     assert np.array_equal(x.cpu().numpy(), cx)
     assert np.array_equal(corpus._transcode_lens(v[2], 0, F, W).cpu().numpy(), cl)
@@ -432,8 +431,8 @@ def test_assemble_kernel_across_encode_chunks(cuda):
 
 def test_assemble_launches_once_per_call_and_device_group(cuda):
     """One assembly launch per call on one card, one per device group over
-    a mesh that lists the card twice (each group holds whole files); no
-    file is assembled on the host."""
+    a mesh that lists the card twice (each group holds whole files), on
+    the encode and the transcode alike."""
     from qoaudio_tpu_torch.parallel import make_mesh
 
     rng = np.random.default_rng(16)
@@ -441,8 +440,7 @@ def test_assemble_launches_once_per_call_and_device_group(cuda):
     files = [(rng.integers(-20000, 20000, size=n * c).astype(np.int16),
               types.QoaDesc(c, 44100, n)) for n, c in shapes]
     streams = [codec.encode_all(p, d, backend="native") for p, d in files]
-    two = make_mesh(devices=("cuda:0",) * 2)  # encode chains 0-2 | 3-5: whole files
-    host = corpus.host_assembled_files
+    two = make_mesh(devices=("cuda:0",) * 2)
     for call, launched in ((lambda: corpus.batch_encode(files, cuda), 1),
                            (lambda: corpus.batch_encode(files, mesh=two), 2),
                            (lambda: corpus.batch_transcode(streams, cuda), 1),
@@ -450,7 +448,6 @@ def test_assemble_launches_once_per_call_and_device_group(cuda):
         before = cuda_assemble.launches
         call()
         assert cuda_assemble.launches == before + launched
-    assert corpus.host_assembled_files == host
 
 
 def _small_bench_sizes():

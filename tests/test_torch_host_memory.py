@@ -50,11 +50,10 @@ def parsed(streams):
     return out
 
 
-def _zeros_staging(parsed, multiple):
+def _zeros_staging(parsed):
     """The staging as zero-filled arrays, then each file's block."""
     W = max(p.max_windows for p in parsed)
-    n = sum(p.n_frames * p.channels for p in parsed)
-    N = -(-n // multiple) * multiple
+    N = sum(p.n_frames * p.channels for p in parsed)
     words = np.zeros((W, N), np.uint64)
     state = np.zeros((8, N), np.int32)
     off = 0
@@ -66,18 +65,24 @@ def _zeros_staging(parsed, multiple):
     return words.view(np.int64), state
 
 
-@pytest.mark.parametrize("multiple", [1, 8])
-def test_staging_zeroes_what_no_file_covers(parsed, multiple, monkeypatch):
+# which of LENGTHS' files a staging holds: all four, and two in the other
+# order (the stereo file of 256-window frames, then the 12-window clip)
+CORPORA = {"all": [0, 1, 2, 3], "two": [2, 0]}
+
+
+@pytest.mark.parametrize("files", CORPORA.values(), ids=list(CORPORA))
+def test_staging_zeroes_what_no_file_covers(parsed, files, monkeypatch):
     """Staged into memory full of ones, every byte is the zero-filled
-    staging's: short files' missing windows and the padding chains."""
+    staging's: the windows a file has fewer of than the longest."""
+    parsed = [parsed[i] for i in files]
     empty = torch.empty
 
     def dirty(*args, **kwargs):
         return empty(*args, **kwargs).fill_(-1)
 
     monkeypatch.setattr(torch, "empty", dirty)
-    words, state, offs = corpus._stage_decode(parsed, multiple)
-    want_words, want_state = _zeros_staging(parsed, multiple)
+    words, state, offs = corpus._stage_decode(parsed)
+    want_words, want_state = _zeros_staging(parsed)
     assert words.dtype == np.int64 and state.dtype == np.int32
     assert np.array_equal(words, want_words)
     assert np.array_equal(state, want_state)
@@ -123,13 +128,40 @@ def test_freed_heap_is_kept_for_the_next_call():
     assert tuned < pages // 20 < untuned
 
 
+
+@pytest.mark.skipif(platform.libc_ver()[0] != "glibc", reason="glibc's mallopt")
+@pytest.mark.parametrize("opt_out", [False, True], ids=["tuned", "opted_out"])
+def test_batch_encode_tunes_the_allocator(opt_out):
+    """``batch_encode`` parses no stream, so in a process that only
+    encodes the native engine never loads: the call tunes the allocator
+    itself, and ``QOA_NO_MALLOPT=1`` still opts out."""
+    code = (
+        "import numpy as np\n"
+        "from qoaudio_tpu_torch import QoaDesc, native\n"
+        "from qoaudio_tpu_torch.parallel import batch_encode\n"
+        "assert not native._allocator_tuned\n"
+        "pcm = (np.arange(230) * 37 % 2000 - 1000).astype(np.int16)\n"
+        "(out,) = batch_encode([(pcm, QoaDesc(1, 44100, 230))], 'cpu')\n"
+        "print(len(out), native._allocator_tuned)\n"
+    )
+    env = dict(os.environ)
+    env.pop("QOA_NO_MALLOPT", None)
+    if opt_out:
+        env["QOA_NO_MALLOPT"] = "1"
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    n_bytes, tuned = r.stdout.split()[-2:]
+    assert int(n_bytes) > 0
+    assert tuned == str(not opt_out)
+
 @pytest.mark.cuda
 def test_pinned_staging_and_fetch_on_card(streams, parsed):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    words, state, _ = corpus._stage_decode(parsed, 4, pin=True)
+    words, state, _ = corpus._stage_decode(parsed, pin=True)
     assert isinstance(words, torch.Tensor) and words.is_pinned() and state.is_pinned()
-    want_words, want_state = _zeros_staging(parsed, 4)
+    want_words, want_state = _zeros_staging(parsed)
     assert np.array_equal(words.numpy(), want_words)
     assert np.array_equal(state.numpy(), want_state)
     for got, want in zip(fetch_arrays(put_arrays([words, state], "cuda")),

@@ -2,11 +2,13 @@
 layer's ``mesh=`` on the CPU.
 
 A mesh that lists the CPU device k times stands in for k devices: each
-shard runs the kernels' plain versions in turn.  Everything must equal the
+shard (the mesh functions) or device group of whole files (the corpus
+layer) runs the kernels' plain versions in turn.  Everything must equal the
 unsharded port, the JAX package's mesh functions on its single-device CPU
 client (``qoaudio_tpu.parallel.mesh.make_mesh()``) and the native engine.
 The corpus is one-frame clips (the plain encoder costs ~1 s per full
-frame): 5 files, 7 chains, so 3- and 4-shard meshes pad the chain axis.
+frame): 5 files, 7 chains, so every device of a 3- or 4-device mesh
+holds whole files and no file's channels straddle two devices.
 """
 
 import numpy as np
@@ -170,7 +172,7 @@ def test_batch_paths_under_mesh(clips, counted, k, tmp_path):
 
     enc = corpus.batch_encode(files, mesh=m)
     assert enc == ref["encode"] == ref["jax_encode"] == streams
-    assert counted == {"decode": 0, "masked": k, "full": 0}  # one chunk per shard
+    assert counted == {"decode": 0, "masked": k, "full": 0}  # one chunk per device group
 
     dec = corpus.batch_decode(streams, mesh=m)
     assert counted["decode"] == k
@@ -207,28 +209,29 @@ def test_more_devices_than_files(counted):
     assert corpus.batch_transcode(streams, mesh=m) == [_native_pair(s) for s in streams]
     # two device groups hold a file; the other two launch nothing
     assert counted == {"decode": 2, "masked": 2, "full": 0}
-    assert corpus.batch_encode(files, mesh=m) == streams  # 3 chains padded to 4
+    assert corpus.batch_encode(files, mesh=m) == streams  # two devices hold a file
     for g, s in zip(corpus.batch_decode(streams, mesh=m), streams):
         assert _same_pcm(g, codec.decode_all(s, backend="native"))
 
 
-# (name, shards, [(samples a channel, channels)], chunk_frames)
+# (name, devices, [(samples a channel, channels)], chunk_frames)
 SHARD_EDGES = [
-    # chains 0-2 | 3-4 and a padding chain: the stereo file's channels on two shards
+    # 5 chains over 2 devices: an equal chain split would cut the stereo file
     ("stereo_split", 2, [(300, 1), (450, 1), (700, 2), (90, 1)], 64),
-    # 2 chains over 4 shards: two shards hold only padding chains
+    # one file over 4 devices: three of them hold nothing
     ("more_shards_than_files", 4, [(120, 2)], 64),
     ("more_shards_than_chains", 5, [(300, 1), (450, 2)], 64),
-    # an 8-channel file over three shards, frame by frame
+    # an 8-channel file whole on one of three devices, frame by frame
     ("eight_channels_split", 3, [(5120 + 31, 8), (61, 1)], 1),
 ]
 
 
 @pytest.mark.parametrize("name, k, shapes, chunk", SHARD_EDGES, ids=[e[0] for e in SHARD_EDGES])
 def test_batch_encode_shard_edges(name, k, shapes, chunk):
-    """Each shard gets the whole of every file its chains touch, a file
-    split over shards goes to each of them whole, and the bytes are the
-    native engine's and the unsharded port's."""
+    """Each device group holds whole files, every file in one group; its
+    flat buffer holds its files' PCM back to back, each chain reads its
+    own channel there and ends on a zero; the bytes are the native
+    engine's and the one-device port's."""
     if not native.available():
         pytest.skip("native engine unavailable")
     from qoaudio_tpu_torch.types import QoaDesc as TDesc
@@ -241,24 +244,28 @@ def test_batch_encode_shard_edges(name, k, shapes, chunk):
     assert corpus.batch_encode(files, mesh=m, chunk_frames=chunk) == want
     assert corpus.batch_encode(files, "cpu", chunk_frames=chunk) == want
 
-    channels = [p.reshape(n, c)[:, i] for p, (n, c) in zip(pcms, shapes) for i in range(c)]
-    Np = mesh.round_up(len(channels), k)
-    flats, vec = corpus._stage_encode_pcm(
-        files, np.cumsum([0] + [c for _, c in shapes[:-1]]).tolist(), m, Np)
-    s = Np // k
-    for j in range(Np):
-        flat = flats[j // s].numpy()
-        base, stride, samples = (int(v) for v in vec[:, j])
-        if j < len(channels):
-            assert np.array_equal(flat[base : base + samples * stride : stride], channels[j])
-        else:
-            assert (stride, samples) == (0, 0)
-        assert flat[base + samples * stride] == 0  # where the chain's samples end
+    groups = corpus._file_groups([-(-n // 5120) for n, _ in shapes],
+                                 [n * c for n, c in shapes], k)
+    assert len(groups) == k
+    assert sorted(i for g in groups for i in g) == list(range(len(files)))
+    assert sum(1 for g in groups if g) == min(k, len(files))
+    for g in groups:
+        if not g:
+            continue
+        flat, vec = corpus._stage_encode_pcm([files[i] for i in g], "cpu")
+        flat = flat.numpy()
+        assert flat.size == sum(n * c + c for n, c in (shapes[i] for i in g))
+        channels = [pcms[i].reshape(shapes[i])[:, c] for i in g for c in range(shapes[i][1])]
+        assert vec.shape == (3, len(channels))
+        for j, want_ch in enumerate(channels):
+            base, stride, samples = (int(v) for v in vec[:, j])
+            assert np.array_equal(flat[base : base + samples * stride : stride], want_ch)
+            assert flat[base + samples * stride] == 0  # where the chain's samples end
 
 
 def test_multi_frame_file_carries_state_per_shard():
-    """A two-frame file in a 3-shard mesh: full first frame, masked tail,
-    with chunk_frames=1 so the LMS carries across launches on each shard."""
+    """A two-frame file on a 3-device mesh: full first frame, masked tail,
+    with chunk_frames=1 so the LMS carries across launches on each device."""
     if not native.available():
         pytest.skip("native engine unavailable")
     files = [_files()[0], (make_noise(5120 + 31, 2, seed=7), QoaDesc(2, 44100, 5120 + 31))]
