@@ -211,6 +211,8 @@ def kernel_bound(key, args, fn_ops, card) -> dict:
         return decode_bound(*args[1].shape, fn_ops, card)
     if key == "assemble":
         return assemble_bound(args[2], card)
+    if key == "gather":
+        return gather_bound(args[1], args[2], args[3], card)
     F, W, _, N = args[1].shape
     windows = int((args[2] > 0).sum()) if key == "masked" else F * W * N
     return encode_bound(key == "masked", F, W, N, windows, fn_ops, card)
@@ -228,6 +230,23 @@ def assemble_bound(table, card) -> dict:
     C, T = t[assemble.CHANNELS], t[assemble.SAMPLES]
     n_bytes = int((8 * -(-T // 20) * C + 4 * 8 * t[assemble.FRAMES] * C).sum()
                   + assemble.stream_bytes(C, T).sum())
+    ms, by = roofline.bound_ms(n_bytes, 0, 0, 0, card)
+    return {"bound_ms": ms, "bound_by": by, "bound_bytes": n_bytes,
+            "bound_alu_ops": 0, "bound_fma_ops": 0, "bound_issued": 0}
+
+
+def gather_bound(table, W, N, card) -> dict:
+    """The bound of one gather launch of ``N`` chains into ``W`` rows over
+    the files of ``table`` (its int64 tensor): each slice word of their
+    frames (8 B) and each chain's two LMS words read once, each output
+    word (W x N of 8 B) and state value (8 x N of 4 B) written once."""
+    from qoaudio_tpu_torch.ops import gather
+    from qoaudio_tpu_torch.utils import roofline
+
+    t = table.cpu().numpy()
+    slices = ((t[gather.FRAMES_FULL] * t[gather.WINDOWS] + t[gather.TAIL_WINDOWS])
+              * t[gather.CHANNELS]).sum()
+    n_bytes = int(8 * slices + 16 * N + 8 * W * N + 32 * N)
     ms, by = roofline.bound_ms(n_bytes, 0, 0, 0, card)
     return {"bound_ms": ms, "bound_by": by, "bound_bytes": n_bytes,
             "bound_alu_ops": 0, "bound_fma_ops": 0, "bound_issued": 0}
@@ -260,6 +279,8 @@ def short_kernel_name(mangled: str) -> str:
         return "encode<masked>" if m.group(1) == "1" else "encode<full>"
     if "qoa_assemble_kernel" in mangled:
         return "assemble"
+    if "qoa_gather_kernel" in mangled:
+        return "gather"
     return mangled
 
 
@@ -349,15 +370,17 @@ def print_paths(lib_path: str) -> int:
 def kernel_wrappers() -> dict:
     """(module, wrapper attribute, plain version) of each kernel."""
     from qoaudio_tpu_torch.ops import assemble as plain_assemble
-    from qoaudio_tpu_torch.ops import cuda_assemble, cuda_decode, cuda_encode
+    from qoaudio_tpu_torch.ops import cuda_assemble, cuda_decode, cuda_encode, cuda_gather
     from qoaudio_tpu_torch.ops import decode as plain_decode
     from qoaudio_tpu_torch.ops import encode as plain_encode
+    from qoaudio_tpu_torch.ops import gather as plain_gather
 
     return {
         "decode": (cuda_decode, "decode_chains_words", plain_decode.decode_chains_words),
         "masked": (cuda_encode, "encode_frames", plain_encode.encode_frames),
         "full": (cuda_encode, "encode_frames_full", plain_encode.encode_frames_full),
         "assemble": (cuda_assemble, "assemble_streams", plain_assemble.assemble_streams),
+        "gather": (cuda_gather, "gather_chains", plain_gather.gather_chains),
     }
 
 
@@ -423,9 +446,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from qoaudio_tpu_torch import bitstream, native
-    from qoaudio_tpu_torch.ops import _build, cuda_assemble, cuda_decode, cuda_encode
+    from qoaudio_tpu_torch import bitstream, codec, native, types
+    from qoaudio_tpu_torch.ops import _build, cuda_assemble, cuda_decode, cuda_encode, cuda_gather
     from qoaudio_tpu_torch.ops import assemble as plain_assemble
+    from qoaudio_tpu_torch.ops import gather as plain_gather
     from qoaudio_tpu_torch.ops.decode import VARIANT_MODES
     from qoaudio_tpu_torch.parallel import corpus
     from qoaudio_tpu_torch.utils import roofline
@@ -445,6 +469,9 @@ def main() -> int:
         "assemble": {"name": "qoa_assemble_streams", "route": "cuda",
                      "source": "qoaudio_tpu_torch/csrc/qoa_assemble.cu",
                      "replaces": "host assembly (bitstream.assemble_stream_bytes)"},
+        "gather": {"name": "qoa_gather_chains", "route": "cuda",
+                   "source": "qoaudio_tpu_torch/csrc/qoa_gather.cu",
+                   "replaces": "host chain gather (bitstream.parse_file_arrays)"},
     }
     for k in kernels.values():
         k["library_ms"] = None  # no one PyTorch call computes QOA decode, encode or streams
@@ -460,6 +487,9 @@ def main() -> int:
         err = max_abs_err(got, want)
         max_err[key] = max(max_err[key], err)
         require(err == 0, f"{key} kernel != plain on {what} (max err {err})")
+        # int64 words differ below a double's precision too
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"{key} kernel != plain on {what}")
         return got
 
     # ---- phase 1: the card and the toolchain ----
@@ -486,8 +516,8 @@ def main() -> int:
             "earlier process (no ptxas report in this one)")
     else:
         regs = ptxas_registers(_build.ptxas_report)
-        # + 2 encoders + the assembly
-        want = len(VARIANT_MODES) * len(cuda_decode.VARIANT_THREADS) + 3
+        # + 2 encoders + the assembly + the gather
+        want = len(VARIANT_MODES) * len(cuda_decode.VARIANT_THREADS) + 4
         require(len(regs) == want, f"ptxas reported {sorted(regs)}")
         say("phase 2: ptxas registers (spill bytes): " + ", ".join(
             f"{k} {r} ({sp})" for k, (r, sp) in sorted(regs.items())))
@@ -497,7 +527,7 @@ def main() -> int:
         say("phase 2: no kernel spills; the production decode "
             f"({PRODUCTION_DECODE}) {regs[PRODUCTION_DECODE][0]} registers, " + ", ".join(
                 f"{name} {regs[name][0]}"
-                for name in ("encode<masked>", "encode<full>", "assemble")))
+                for name in ("encode<masked>", "encode<full>", "assemble", "gather")))
     lib_path = _build.build()
     paths = dependent_paths(lib_path, nvcc)
     for key, c in paths.items():
@@ -601,6 +631,33 @@ def main() -> int:
         f"of the bound {tag}")
     del fold
 
+    # the chain gather at an ESC-50 fold's shape: 400 mono 5-s streams
+    # (eight distinct clips), staged as batch_transcode stages them
+    clips = [codec.encode_all(rng.integers(-3000, 3000, size=220_500).astype(np.int16),
+                              types.QoaDesc(1, 44100, 220_500), backend="native")
+             for _ in range(8)]
+    fold_streams = [clips[i % 8] for i in range(400)]
+    geos = [bitstream.parse_file_geometry(s) for s in fold_streams]
+    buf, gtable, n_chains = corpus._stage_streams(fold_streams, geos, pin=True)
+    fold = (buf.to(dev), torch.from_numpy(gtable).to(dev), 256, n_chains)
+    got = compare("gather", *fold, what="an ESC-50 fold's streams")
+    h_words, h_state, _ = corpus._stage_decode(
+        [bitstream.parse_file_arrays(s) for s in fold_streams])
+    require(np.array_equal(got[0].cpu().numpy(), h_words)
+            and np.array_equal(got[1].cpu().numpy(), h_state),
+            "gather kernel != the host gather (parse_file_arrays) on a fold")
+    k_s = bench_fn(cuda_gather.gather_chains, *fold, device=dev, warmup=2, iters=20)[0]
+    p_s = bench_fn(plain_gather.gather_chains, *fold, device=dev, warmup=1, iters=3)[0]
+    b = gather_bound(fold[1], 256, n_chains, card_peaks)
+    kernels["gather"]["fold_ms"] = k_s * 1e3
+    kernels["gather"]["fold_bound_ms"] = b["bound_ms"]
+    say(f"phase 3: gather kernel == plain == host gather at an ESC-50 fold's shape (400 "
+        f"files, {n_chains} chains x 256 windows, {buf.numel() * 8} B of streams): kernel "
+        f"{k_s * 1e3:.4f} ms (best of 20), plain {p_s * 1e3:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_bytes']} B at {roofline.HBM_BYTES_PER_S:.3e} "
+        f"B/s), {100 * b['bound_ms'] / (k_s * 1e3):.1f}% of the bound {tag}")
+    del fold, buf
+
     # ---- phase 4: the main path at real size ----
     fix_dec, files, streams, want_dec, want_tc, want_enc = smoke_corpus(fixture)
     total = sum(d.samples * d.channels for _, d in files)
@@ -626,6 +683,7 @@ def main() -> int:
     cuda_encode.masked_launches = 0
     cuda_encode.full_launches = 0
     cuda_assemble.launches = 0
+    cuda_gather.launches = 0
     corpus.host_pair_files = 0
     with wrapped(capture):
         with Stopwatch(dev) as sw:
@@ -639,16 +697,18 @@ def main() -> int:
         "masked": cuda_encode.masked_launches,
         "full": cuda_encode.full_launches,
         "assemble": cuda_assemble.launches,
+        "gather": cuda_gather.launches,
     }
     host_pairs = corpus.host_pair_files
     say(f"phase 4: launches decode={counts['decode']} masked={counts['masked']} "
-        f"full={counts['full']} assemble={counts['assemble']}, "
+        f"full={counts['full']} assemble={counts['assemble']} gather={counts['gather']}, "
         f"host_pair_files={host_pairs}")
     for key, n in counts.items():
         require(n > 0, f"kernel {key} never launched on the main path")
         kernels[key]["launches"] = n
     require(host_pairs == 0, f"{host_pairs} files took the host pair")
     require(counts["assemble"] == 2, "one assembly launch a call (transcode, encode)")
+    require(counts["gather"] == 1, "one gather launch a call (transcode)")
 
     bad = [i for i, (g, w) in enumerate(zip(got_tc, want_tc)) if g != w]
     require(not bad, f"batch_transcode != native pair for files {bad}")
@@ -675,12 +735,13 @@ def main() -> int:
         mod, attr, plain = wrappers[key]
         k_s = bench_fn(getattr(mod, attr), *args, device=dev, warmup=2, iters=10)[0]
         p_s = bench_fn(plain, *args, device=dev, warmup=0, iters=1)[0]
-        shape = "x".join(str(n) for n in args[1].shape)
+        shape = (f"{args[2]}x{args[3]}" if key == "gather"
+                 else "x".join(str(n) for n in args[1].shape))
         kernels[key].update(ms=k_s * 1e3, plain_ms=p_s * 1e3, timed_shape=shape,
                             **kernel_bound(key, args, fn_ops, card_peaks))
         k = kernels[key]
         per_step = ""
-        if key != "assemble":  # no serial chain in the assembly
+        if key not in ("assemble", "gather"):  # no serial chain in these
             # the serial chain: W x 20 dependent steps (decode), F x W x 20 (encode)
             steps = 20 * (args[1].shape[0] if key == "decode"
                           else args[1].shape[0] * args[1].shape[1])
@@ -770,7 +831,7 @@ def phase_bench(dev, card, bench_streams, fn_ops, card_peaks):
     Returns (the line's object, the launches counted per kernel, the
     probe's among them)."""
     from qoaudio_tpu_torch import bench, bitstream
-    from qoaudio_tpu_torch.ops import cuda_assemble, cuda_decode
+    from qoaudio_tpu_torch.ops import cuda_assemble, cuda_decode, cuda_gather
 
     sizes = bench.Sizes()
     calls = 2 * sizes.iters + 2  # warm, timed end to end; the handle: warm, timed
@@ -790,12 +851,13 @@ def phase_bench(dev, card, bench_streams, fn_ops, card_peaks):
     }
     reset_launch_counts()
     cuda_decode.variant_launches = 0
-    assembled = cuda_assemble.launches
+    assembled, gathered = cuda_assemble.launches, cuda_gather.launches
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = bench.main(dev)
     seen = launch_counts()
     assembled = cuda_assemble.launches - assembled
+    gathered = cuda_gather.launches - gathered
     seen_variants = cuda_decode.variant_launches
     require(rc == 0, f"bench.main returned {rc}")
     lines = out.getvalue().strip().splitlines()
@@ -851,7 +913,7 @@ def phase_bench(dev, card, bench_streams, fn_ops, card_peaks):
             f"{bounds[0]['bound_ms']:.4f} ms, masked {bounds[1]['bound_ms']:.4f} ms "
             f"({bounds[0]['bound_by']})")
     return result, {**{k: seen[k] for k in total}, "variants": seen_variants,
-                    "assemble": assembled}
+                    "assemble": assembled, "gather": gathered}
 
 
 def phase_entry(dev):
@@ -1230,7 +1292,7 @@ def kernel_ms(call, dev):
 
     from qoaudio_tpu_torch.utils.timing import Stopwatch
 
-    spent = {"decode": 0.0, "masked": 0.0, "full": 0.0, "assemble": 0.0}
+    spent = {"decode": 0.0, "masked": 0.0, "full": 0.0, "assemble": 0.0, "gather": 0.0}
 
     def timed(key, fn):
         def run(*args):

@@ -244,14 +244,18 @@ class ParsedArrays:
     def max_windows(self) -> int:
         return self.words_be.shape[0]
 
+    @property
+    def first_frame_samples(self) -> int:
+        return int(self.samples_per_frame[0])
+
 
 @dataclasses.dataclass
 class FileGeometry:
     """Validated geometry of a fixed-mode uniform-frame stream.
 
     The probe half of :func:`parse_file_arrays`: everything needed to
-    drive the raw-bytes fused decode kernel (which reads words and LMS
-    straight from ``data``) without the chain-array gather.
+    gather the words and LMS straight from ``data`` on the device
+    (``ops/gather.py``) without the chain-array gather on the host.
     """
 
     total_samples: int
@@ -262,6 +266,26 @@ class FileGeometry:
     W0: int            # slice windows per full frame
     F_full: int        # number of full frames
     tail: Optional[FrameRecord]  # short final frame, if any
+
+    # what ``parse_file_arrays`` would give, read from the headers alone
+    @property
+    def n_frames(self) -> int:
+        return self.F_full + (self.tail is not None)
+
+    @property
+    def max_windows(self) -> int:
+        return self.W0
+
+    @property
+    def frame_samples(self) -> int:
+        """Samples a channel over all frame headers (``samples_per_frame``
+        summed, not the file header's count)."""
+        tail = 0 if self.tail is None else self.tail.samples_per_channel
+        return self.F_full * self.spc0 + tail
+
+    @property
+    def first_frame_samples(self) -> int:
+        return self.spc0
 
 
 def parse_file_geometry(data: bytes) -> Optional[FileGeometry]:

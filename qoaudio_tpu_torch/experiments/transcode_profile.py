@@ -5,7 +5,8 @@
 The counterpart of ``experiments/tpu_transcode_profile.py``.  The stages of
 ``corpus._transcode_pipeline`` on the 32-file bench corpus (35.7 Msamples,
 6,976 decode chains, 48 encode chains), each between CUDA events on the
-pipeline's stream: the decode kernel, the relayout gather
+pipeline's stream: the chain gather from the uploaded streams
+(``cuda_gather``), the decode kernel, the relayout gather
 (``_relayout_encode_input``, once per 64-frame chunk), ``_transcode_lens``
 (once per masked chunk), the full-window and the masked encode launches,
 and ``pack``, everything after the last encode launch (the concatenations
@@ -23,7 +24,9 @@ pair.  Arguments name the corpora to profile (default ``bench``):
 (512 chains).
 
 OUTCOME (NVIDIA H100 80GB HBM3, 700.00 W; one run of this module with
-``bench saturated mixed``; ms, medians of 5, calls in parentheses):
+``bench saturated mixed``; ms, medians of 5, calls in parentheses; before
+the gather stage, when the host uploaded the decode's words as they are
+laid out):
                   bench (48 chains)   saturated (256)   mixed (512)
     decode        0.2964 (1)          0.2677 (1)        0.6280 (1)
     relayout      0.4882 (4)          0.5607 (1)        3.8654 (4)
@@ -57,7 +60,7 @@ import time
 import torch
 
 from .. import bench
-from ..ops import cuda_decode, cuda_encode
+from ..ops import cuda_decode, cuda_encode, cuda_gather
 from ..parallel import corpus
 from ..utils.timing import time_calls
 from ..utils.transfer import fetch_arrays
@@ -65,6 +68,7 @@ from .bucketed_transcode import mixed_spec
 
 # stage -> (module, function) whose calls it times
 STAGE_CALLS = {
+    "gather": (cuda_gather, "gather_chains"),
     "decode": (cuda_decode, "decode_chains_words"),
     "relayout": (corpus, "_relayout_encode_input"),
     "lens": (corpus, "_transcode_lens"),

@@ -156,6 +156,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qoa_encode_frames_full_cuda.restype = i
     lib.qoa_assemble_cuda.argtypes = [p, p, i, ll, p, i, ll, p, p]
     lib.qoa_assemble_cuda.restype = i
+    lib.qoa_gather_cuda.argtypes = [p, p, i, i, ll, p, p, p]
+    lib.qoa_gather_cuda.restype = i
     ip = ctypes.POINTER(i)
     lib.qoa_encode_occupancy.argtypes = [ip, ip, ip]
     lib.qoa_encode_occupancy.restype = i

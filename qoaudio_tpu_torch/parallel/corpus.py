@@ -20,10 +20,13 @@ group is every file, in input order.
   group's PCM is uploaded once, as it is interleaved, and laid out for the
   encoder on the device (one gather a chunk); its streams are assembled on
   the device;
-* ``batch_transcode`` — decode, then relayout ON THE DEVICE into the
-  encoder's layout (one ``index_select`` plus a ``permute``), then encode
-  and assemble the streams: the PCM never leaves device memory, and only
-  the streams' bytes come back.  A mixed-length corpus may split into
+* ``batch_transcode`` — a group's streams uploaded once, as they are, and
+  gathered into decode chains on the device (``ops.cuda_gather``); decode,
+  then relayout ON THE DEVICE into the encoder's layout (one
+  ``index_select`` plus a ``permute``), then encode and assemble the
+  streams: the PCM never leaves device memory, and only the streams'
+  bytes come back.  The host reads each stream's geometry alone
+  (``bitstream.parse_file_geometry``).  A mixed-length corpus may split into
   length buckets (``bucket="auto"``), each placed by the same rule, and
   the staged device pipeline can be handed out
   (``return_fused_handle=True``);
@@ -48,7 +51,8 @@ Under a running ``torch.profiler`` each host stage of a call is a span
 (``utils/timing.span``), once per stage and device group, never per file:
 ``qoa.parse``, ``qoa.host_pair`` (the eligibility split and the files
 that take the host pair), ``qoa.stage`` (host arrays: file groups, the
-transcode staging, the encode checks and the flat PCM buffer) with
+transcode's stream buffer and tables, the encode checks and the flat PCM
+buffer) with
 ``qoa.bucket`` inside (the length-bucket choice), ``qoa.upload``
 (``put_arrays``), ``qoa.pipeline`` (queuing the device work),
 ``qoa.fetch`` with ``qoa.wait`` inside (``fetch_arrays``) and
@@ -60,6 +64,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import functools
+import itertools
 import math
 import os
 import time
@@ -75,7 +80,7 @@ from .. import codec
 from .. import format as fmt
 from .. import native
 from ..errors import InvalidSamples
-from ..ops import assemble, cuda_assemble, cuda_decode, cuda_encode
+from ..ops import assemble, cuda_assemble, cuda_decode, cuda_encode, cuda_gather, gather
 from ..ops.layout import frame_major
 from ..types import DecodedQoa, QoaDesc
 from ..utils.timing import span
@@ -527,7 +532,7 @@ def _host_pair(d: bytes, device) -> bytes:
 
 def _device_eligible(p) -> bool:
     return p is not None and (
-        p.n_frames == 1 or int(p.samples_per_frame[0]) == fmt.QOA_FRAME_LEN
+        p.n_frames == 1 or p.first_frame_samples == fmt.QOA_FRAME_LEN
     )
 
 
@@ -622,11 +627,14 @@ class TranscodeFusedHandle:
     """Handle onto one device's staged ``batch_transcode`` pipeline,
     returned by ``batch_transcode(..., return_fused_handle=True)``.
 
-    Holds the device-resident staged arguments (raw BE words, decode
-    state, relayout index, per-chain samples, initial encoder state, the
+    Holds the device-resident staged arguments (the device group's QOA
+    streams back to back as they were uploaded, the per-file gather
+    table, relayout index, per-chain samples, initial encoder state, the
     per-file assembly table), which pins them in device memory while the
-    handle lives, and ``fn``, which runs decode -> relayout -> lens ->
-    chunked encode -> stream assembly on them.  Calling the handle
+    handle lives, and ``fn``, which runs chain gather -> decode ->
+    relayout -> lens -> chunked encode -> stream assembly on them.  The
+    decoder's words and state are made anew by each run's gather and
+    freed after its decode.  Calling the handle
     re-issues those launches with no host staging and returns a one-tuple
     of the uint8 device tensor that holds every file's bytes, unfetched.
     ``batch_transcode`` itself runs through the handle, so timing a call
@@ -646,16 +654,19 @@ class TranscodeFusedHandle:
         return self.fn(*self.args)
 
 
-def _transcode_pipeline(dstate, words_be, idx, samples, state, table, *,
-                        W_enc: int, chunk: int, f_full: int, n_bytes: int,
-                        n_frames: int):
-    """Step 2 of a transcode, all on the staged tensors' device: decode ->
-    relayout -> lens -> chunked encode -> every file's stream, assembled
-    from the encoder's outputs by one launch.  Returns a one-tuple of the
-    uint8 bytes tensor.  Chunks below ``f_full`` — where every window of
-    every chain holds 20 samples — take the full-window kernel; the LMS
-    carries across chunks on the device."""
+def _transcode_pipeline(streams, gtable, idx, samples, state, table, *,
+                        W: int, Nd: int, W_enc: int, chunk: int, f_full: int,
+                        n_bytes: int, n_frames: int):
+    """Step 2 of a transcode, all on the staged tensors' device: the
+    decode chains gathered from the streams -> decode -> relayout -> lens
+    -> chunked encode -> every file's stream, assembled from the
+    encoder's outputs by one launch.  Returns a one-tuple of the uint8
+    bytes tensor.  Chunks below ``f_full`` — where every window of every
+    chain holds 20 samples — take the full-window kernel; the LMS carries
+    across chunks on the device."""
+    words_be, dstate = cuda_gather.gather_chains(streams, gtable, W, Nd)
     dec = cuda_decode.decode_chains_words(dstate, words_be)  # (W, 20, Nd)
+    del words_be, dstate
     F = idx.shape[0]
     snaps, words = [], []
     for f0 in range(0, F, chunk):
@@ -672,68 +683,92 @@ def _transcode_pipeline(dstate, words_be, idx, samples, state, table, *,
                                            n_frames),)
 
 
-def _stage_transcode(parsed, device, chunk_frames: int) -> TranscodeFusedHandle:
-    """Step 1 of a transcode: stage the files' words, the relayout and the
-    assembly table on the host and upload them to ``device``; returns the
-    handle onto step 2."""
-    words_be, dstate, doffs = _stage_decode(
-        parsed, pin=torch.device(device).type == "cuda")
+def _stage_streams(streams, geos, pin: bool):
+    """A device group's streams copied once, back to back, into one int64
+    host tensor (pinned with ``pin``), and the gather's table of them
+    (``ops.gather.file_table``).  Every stream the device path takes is a
+    whole number of u64 words, so each starts 8-byte aligned.  Returns
+    (buffer, table, decode chains in all)."""
+    starts = [0, *itertools.accumulate(len(d) for d in streams)]
+    buf = torch.empty(starts[-1] // 8, dtype=torch.int64, pin_memory=pin)
+    host = memoryview(buf.numpy()).cast("B")
+    for d, a, b in zip(streams, starts, starts[1:]):
+        host[a:b] = d
+    table, n_chains = gather.file_table(
+        [a + fmt.QOA_HEADER_SIZE for a in starts[:-1]], [g.n_frames for g in geos],
+        [g.F_full for g in geos], [g.frame_bytes for g in geos], [g.channels for g in geos], [g.W0 for g in geos],
+        [0 if g.tail is None else g.tail.n_windows for g in geos])
+    return buf, table, n_chains
+
+
+def _stage_transcode(streams, geos, device, chunk_frames: int) -> TranscodeFusedHandle:
+    """Step 1 of a transcode: the files' streams copied into one buffer
+    (:func:`_stage_streams`), the gather and assembly tables and the
+    relayout built on the host from each stream's geometry
+    (``bitstream.parse_file_geometry``), all uploaded to ``device``;
+    returns the handle onto step 2, which gathers the decode chains on
+    the device."""
+    buf, gtable, Nd = _stage_streams(streams, geos, pin=torch.device(device).type == "cuda")
+    doffs = gtable[gather.CHAIN].tolist()
     eoffs = []
     n = 0
-    for p in parsed:
+    for g in geos:
         eoffs.append(n)
-        n += p.channels
+        n += g.channels
     Ne = n
-    F_max = max(p.n_frames for p in parsed)
+    F_max = max(g.n_frames for g in geos)
     W_enc = max(
-        fmt.QOA_SLICES_PER_FRAME if p.n_frames > 1 else p.max_windows
-        for p in parsed
+        fmt.QOA_SLICES_PER_FRAME if g.n_frames > 1 else g.max_windows
+        for g in geos
     )
-    file_samples = [int(p.samples_per_frame.sum()) for p in parsed]
-    chans = [p.channels for p in parsed]
+    file_samples = [g.frame_samples for g in geos]
+    chans = [g.channels for g in geos]
     samples = np.repeat(file_samples, chans)  # samples/channel of each encode chain
     metas = tuple(
-        (p.n_frames, p.channels, doff, eoff)
-        for p, doff, eoff in zip(parsed, doffs, eoffs)
+        (g.n_frames, g.channels, doff, eoff)
+        for g, doff, eoff in zip(geos, doffs, eoffs)
     )
     table, n_bytes, n_frames = assemble.file_table(
-        chans, [p.sample_rate for p in parsed], file_samples, eoffs)
+        chans, [g.sample_rate for g in geos], file_samples, eoffs)
     args = put_arrays(
-        [dstate, words_be, _relayout_index(metas, F_max, Ne), samples,
+        [buf, gtable, _relayout_index(metas, F_max, Ne), samples,
          codec.initial_encoder_state(0, Ne), table],
         device,
     )
     fn = functools.partial(
-        _transcode_pipeline, W_enc=W_enc, chunk=chunk_frames,
-        f_full=int(samples.min()) // fmt.QOA_FRAME_LEN, n_bytes=n_bytes,
-        n_frames=n_frames,
+        _transcode_pipeline, W=max(g.max_windows for g in geos), Nd=Nd, W_enc=W_enc,
+        chunk=chunk_frames, f_full=int(samples.min()) // fmt.QOA_FRAME_LEN,
+        n_bytes=n_bytes, n_frames=n_frames,
     )
     return TranscodeFusedHandle(
         fn, tuple(args),
         functools.partial(_assemble, table[assemble.OFFSET].tolist()))
 
 
-def _transcode_groups(parsed, mesh: Mesh, chunk_frames: int):
+def _transcode_groups(streams, geos, mesh: Mesh, chunk_frames: int):
     """Every device group's pipeline issued before any fetch, then one
     fetch and the assembly.  Returns (bytes per file, handle per group)."""
     handles = []
 
     def launch(dev, idx):
         with span("qoa.stage"):
-            h = _stage_transcode([parsed[i] for i in idx], dev, chunk_frames)
+            h = _stage_transcode([streams[i] for i in idx], [geos[i] for i in idx], dev,
+                                 chunk_frames)
         with span("qoa.pipeline"):
             (buf,) = h()
         handles.append(h)
         return buf, h.assemble
 
     with span("qoa.stage"):
-        groups = _file_groups(*_parsed_load(parsed), mesh.size)
+        groups = _file_groups([g.n_frames for g in geos],
+                              [g.frame_samples * g.channels for g in geos], mesh.size)
     return _run_groups(mesh, groups, launch), handles
 
 
-def _transcode(streams, parsed, mesh: Mesh, chunk_frames: int, bucket,
+def _transcode(streams, geos, mesh: Mesh, chunk_frames: int, bucket,
                one_device: bool):
-    """``batch_transcode`` on parsed streams -> (bytes per file, handle).
+    """``batch_transcode`` on the streams and their geometry (``geos``:
+    ``bitstream.parse_file_geometry`` of each) -> (bytes per file, handle).
     Only the streams the device path cannot take pay the host pair; the
     rest still run the device pipeline, split into length buckets where
     ``bucket`` is set and the cost model finds a split worth it."""
@@ -741,7 +776,7 @@ def _transcode(streams, parsed, mesh: Mesh, chunk_frames: int, bucket,
     outs: List[Optional[bytes]] = [None] * len(streams)
     good = []
     with span("qoa.host_pair"):
-        for i, (d, p) in enumerate(zip(streams, parsed)):
+        for i, (d, p) in enumerate(zip(streams, geos)):
             if _device_eligible(p):
                 good.append(i)
             else:
@@ -753,13 +788,14 @@ def _transcode(streams, parsed, mesh: Mesh, chunk_frames: int, bucket,
     if bucket:
         with span("qoa.stage"), span("qoa.bucket"):
             e_mult, overhead = _bucket_model(mesh)
-            segs = _length_buckets([parsed[i].n_frames for i in good],
-                                   [parsed[i].channels for i in good], e_mult,
+            segs = _length_buckets([geos[i].n_frames for i in good],
+                                   [geos[i].channels for i in good], e_mult,
                                    chunk_frames, overhead)
     handles = []
     for seg in segs or [range(len(good))]:
         idx = [good[k] for k in seg]
-        sub, hs = _transcode_groups([parsed[i] for i in idx], mesh, chunk_frames)
+        sub, hs = _transcode_groups([streams[i] for i in idx], [geos[i] for i in idx],
+                                    mesh, chunk_frames)
         handles.extend(hs)
         for i, data in zip(idx, sub):
             outs[i] = data
@@ -812,8 +848,8 @@ def batch_transcode(
         outs, handle = [], None
     else:
         with span("qoa.parse"):
-            parsed = [bs.parse_file_arrays(d) for d in streams]
-        outs, handle = _transcode(streams, parsed, on, chunk_frames, bucket,
+            geos = [bs.parse_file_geometry(d) for d in streams]
+        outs, handle = _transcode(streams, geos, on, chunk_frames, bucket,
                                   one_device=mesh is None)
     return (outs, handle) if return_fused_handle else outs
 

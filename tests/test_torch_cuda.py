@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from qoaudio_tpu_torch import bitstream, codec, native, types
+from qoaudio_tpu_torch import format as fmt
 from qoaudio_tpu_torch.ops import assemble as plain_assemble
 from qoaudio_tpu_torch.ops import cuda_assemble, cuda_decode, cuda_encode
 from qoaudio_tpu_torch.ops import decode as plain_decode
@@ -531,11 +532,122 @@ def test_transcode_profile_and_calibration_on_card(cuda, fixture_bytes):
     from qoaudio_tpu_torch.experiments import decode_calibration, transcode_profile
 
     r = transcode_profile.run(cuda, spec=bench.bench_spec(4), iters=2)
-    assert r["calls"] == {"decode": 1, "relayout": 4, "lens": 3, "encode_full": 1,
-                          "encode_masked": 3}
+    assert r["calls"] == {"gather": 1, "decode": 1, "relayout": 4, "lens": 3,
+                          "encode_full": 1, "encode_masked": 3}
     assert r["steps"]["encode_full"] == 64 * 5120 and r["steps"]["encode_masked"] == 192 * 5120
     assert all(r[s] > 0 for s in transcode_profile.STAGES)
     assert abs(r["total"] - r["handle"]) < 0.2 * r["handle"]
     c = decode_calibration.run(cuda, bench.Sizes(decode_windows=64, decode_chains=4096),
                                ks=(1, 4, 8), reps=2)
     assert c["slope_s"] > 0 and all(row["device_s"] > 0 for row in c["rows"])
+
+
+def _stream(rng, n, channels=1, amplitude=3000):
+    pcm = rng.integers(-amplitude, amplitude, size=n * channels).astype(np.int16)
+    return codec.encode_all(pcm, types.QoaDesc(channels, 44100, n), backend="native")
+
+
+def _zero_sample_tail(rng) -> bytes:
+    """One full mono frame, then a last frame whose header says 0 samples
+    (and whose size field one slice): its header and LMS words alone."""
+    d = _stream(rng, 5120)
+    tail = fmt.pack_frame_header(1, 44100, 0, fmt.qoa_frame_size(1, 1))
+    return d + tail.to_bytes(8, "big") + d[16:32]
+
+
+def _gather_groups(rng, fixture):
+    """Device groups of streams, in group order: the CPU tests' cases
+    (tests/test_torch_gather.py) and an ESC-50 fold of 400 5-s clips."""
+    clip = 220_500
+    clips = [_stream(rng, clip) for _ in range(8)]
+    return {
+        "mono-5s-clip": [clips[0]],
+        "stereo": [_stream(rng, 3 * 5120 + 777, 2)],
+        "8-channels": [_stream(rng, 2 * 5120 + 123, 8)],
+        "exact-frames": [_stream(rng, 4 * 5120), _stream(rng, 2 * 5120, 2)],
+        "short-frame-among-long": [clips[1], _stream(rng, 41), _stream(rng, 2 * 5120 + 9, 2)],
+        "same-size-tails": [_stream(rng, 2 * 5120 + 5_101), _stream(rng, 5120 + 5_119, 2)],
+        "negative-weights": [_stream(rng, 3 * 5120 + 50, 2, amplitude=32000)],
+        "fixture": [fixture],
+        "mixed": [_stream(rng, n, c) for n, c in
+                  [(300, 1), (5_000, 2), (5121, 1), (7 * 5120 + 4_000, 3), (20, 1),
+                   (2 * 5120 + 5_110, 1), (5120, 8)]],
+        "zero-sample-tail-last": [clips[2], _zero_sample_tail(rng)],
+        "esc50-fold": [clips[i % 8] for i in range(400)],
+    }
+
+
+def test_gather_kernel_matches_plain_and_the_host_gather(cuda, fixture_bytes):
+    """The gather kernel gives its plain version's words and state, and
+    the host gather's (``_stage_decode`` of ``parse_file_arrays``), on
+    each group staged as ``batch_transcode`` stages it; one launch each."""
+    from qoaudio_tpu_torch.ops import cuda_gather
+    from qoaudio_tpu_torch.ops import gather as plain_gather
+
+    if not native.available():
+        pytest.skip("native engine unavailable")
+    for name, streams in _gather_groups(np.random.default_rng(17), fixture_bytes).items():
+        geos = [bitstream.parse_file_geometry(s) for s in streams]
+        buf, table, n_chains = corpus._stage_streams(streams, geos, pin=True)
+        W = max(g.max_windows for g in geos)
+        args = (buf.to(cuda), torch.from_numpy(table).to(cuda), W, n_chains)
+        before = cuda_gather.launches
+        words, state = cuda_gather.gather_chains(*args)
+        torch.cuda.synchronize()
+        assert cuda_gather.launches == before + 1, name
+        p_words, p_state = plain_gather.gather_chains(*args)
+        assert torch.equal(words, p_words) and torch.equal(state, p_state), name
+        h_words, h_state, _ = corpus._stage_decode(
+            [bitstream.parse_file_arrays(s) for s in streams])
+        assert np.array_equal(words.cpu().numpy(), h_words), name
+        assert np.array_equal(state.cpu().numpy(), h_state), name
+
+
+def _pair(s):
+    o = codec.decode_all(s, backend="native")
+    return codec.encode_all(o.samples, types.QoaDesc(o.num_channels, o.sample_rate,
+                                                     o.samples_per_channel), backend="native")
+
+
+def test_gather_launches_once_per_group_and_bucket(cuda, monkeypatch):
+    """One gather launch a ``batch_transcode`` call on a fold, three on a
+    call cut into three length buckets; the decode, encode and host-pair
+    counts are those of one decode a group and its chunked encode."""
+    from qoaudio_tpu_torch.ops import cuda_gather
+
+    if not native.available():
+        pytest.skip("native engine unavailable")
+    rng = np.random.default_rng(18)
+    clips = [_stream(rng, 220_500) for _ in range(8)]
+    fold = [clips[i % 8] for i in range(400)]
+    mixed = [_stream(rng, n, 1 + i % 2) for i, n in
+             enumerate([900, 4_000, 20 * 5120 + 7, 21 * 5120, 150 * 5120 + 99, 151 * 5120])]
+
+    def counted(streams):
+        counters = (lambda: cuda_gather.launches, lambda: cuda_decode.launches,
+                    lambda: cuda_encode.masked_launches, lambda: cuda_encode.full_launches)
+        before = [c() for c in counters]
+        corpus.host_pair_files = 0
+        got = corpus.batch_transcode(streams, cuda)
+        assert got == [_pair(s) for s in streams]
+        return [c() - b for c, b in zip(counters, before)] + [corpus.host_pair_files]
+
+    # 44 frames a clip, under one 64-frame chunk, none all full
+    assert counted(fold) == [1, 1, 1, 0, 0]
+    # a group that ends in a file whose last frame holds no samples
+    assert counted([clips[0], _zero_sample_tail(rng)]) == [1, 1, 1, 0, 0]
+    monkeypatch.setattr(corpus, "_bucket_model", lambda mesh: (1, 1.0))
+    geos = [bitstream.parse_file_geometry(s) for s in mixed]
+    segs = corpus._length_buckets([g.n_frames for g in geos], [g.channels for g in geos],
+                                  1, 64, 1.0)
+    assert segs is not None and len(segs) == 3
+    # per bucket: one gather, one decode; chunks of 64 frames over its longest
+    # file, the leading ones all full below its shortest
+    masked = full = 0
+    for seg in segs:
+        F = max(geos[i].n_frames for i in seg)
+        f_full = min(geos[i].frame_samples for i in seg) // 5120
+        n_full = sum(1 for f0 in range(0, F, 64) if min(f0 + 64, F) <= f_full)
+        full += n_full
+        masked += -(-F // 64) - n_full
+    assert counted(mixed) == [3, 3, masked, full, 0]

@@ -11,7 +11,7 @@ from qoaudio_tpu import native
 from qoaudio_tpu_torch import bench
 from qoaudio_tpu_torch.experiments import (bucketed_transcode, decode_calibration,
                                            lane_saturated, transcode_profile)
-from qoaudio_tpu_torch.ops import cuda_decode, cuda_encode
+from qoaudio_tpu_torch.ops import cuda_decode, cuda_encode, cuda_gather
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="native engine unavailable")
 
@@ -84,17 +84,18 @@ def test_decode_calibration_small():
 
 @pytest.mark.parametrize("spec, calls", [
     # a clip shorter than a frame: one masked launch (and its lens)
-    (((300, 2, 44100),), {"decode": 1, "relayout": 1, "lens": 1, "encode_full": 0,
-                          "encode_masked": 1}),
+    (((300, 2, 44100),), {"gather": 1, "decode": 1, "relayout": 1, "lens": 1,
+                          "encode_full": 0, "encode_masked": 1}),
     # exactly one full frame: the full-window kernel, no lens
-    (((5120, 1, 44100),), {"decode": 1, "relayout": 1, "lens": 0, "encode_full": 1,
-                           "encode_masked": 0}),
+    (((5120, 1, 44100),), {"gather": 1, "decode": 1, "relayout": 1, "lens": 0,
+                           "encode_full": 1, "encode_masked": 0}),
 ])
 def test_transcode_profile_stages_cover_every_launch(monkeypatch, spec, calls):
-    """Count the three wrappers' calls during the profiled runs: every one
+    """Count the four wrappers' calls during the profiled runs: every one
     lies inside a stage, and the stages and gaps sum to the total."""
-    seen = {"decode": 0, "encode_full": 0, "encode_masked": 0}
-    for mod, name, key in ((cuda_decode, "decode_chains_words", "decode"),
+    seen = {"gather": 0, "decode": 0, "encode_full": 0, "encode_masked": 0}
+    for mod, name, key in ((cuda_gather, "gather_chains", "gather"),
+                           (cuda_decode, "decode_chains_words", "decode"),
                            (cuda_encode, "encode_frames_full", "encode_full"),
                            (cuda_encode, "encode_frames", "encode_masked")):
         fn = getattr(mod, name)

@@ -206,8 +206,8 @@ def test_tables_match_jax_format(source):
                 assert got[k] == want[k], k
         return
     tables = _c_int_arrays(os.path.join(ROOT, "qoaudio_tpu_torch", source))
-    if source == os.path.join("csrc", "qoa_assemble.cu"):
-        assert tables == {}  # it moves bits and quantises nothing: no table
+    if source in (os.path.join("csrc", "qoa_assemble.cu"), os.path.join("csrc", "qoa_gather.cu")):
+        assert tables == {}  # they move bits and quantise nothing: no table
         return
     want = {"kScalefactorTab": sf, "kSfTab": sf, "kReciprocalTab": recip,
             "kRecipTab": recip, "kRecipV": recip, "kQuantLo": quant[:16],

@@ -1,9 +1,12 @@
 """Host memory that a corpus call reuses from call to call.
 
-The transcode staging fills the decode chains' words and LMS in place
-(pinned on a CUDA device, where the caching host allocator hands the
-blocks out again, and ``put_arrays`` uploads such a tensor as it is), so
-every byte a file does not cover has to be zeroed explicitly; the native
+The decode staging (``corpus._stage_decode``) fills the decode chains'
+words and LMS in place (pinned on request, where the caching host
+allocator hands the blocks out again, and ``put_arrays`` uploads such a
+tensor as it is), so every byte a file does not cover has to be zeroed
+explicitly; the transcode stages the streams themselves in a pinned
+buffer they cover whole, and its gather on the card writes every word,
+zero past each chain's windows (tests/test_torch_cuda.py); the native
 engine's allocator tuning keeps freed heap memory in the process instead
 of handing it back to the kernel.  This file imports nothing of jax: the ``cuda`` tests run
 on the card with

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from qoaudio_tpu import format as fmt
-from qoaudio_tpu_torch.ops import _build, cuda_decode, cuda_encode
+from qoaudio_tpu_torch.ops import _build, cuda_decode, cuda_encode, cuda_gather
 from qoaudio_tpu_torch.ops import layout
 from qoaudio_tpu_torch.utils import timing, transfer
 
@@ -226,9 +226,14 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
         cuda_encode.encode_frames(meta, x, lens)
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
         cuda_encode.encode_frames_full(meta, x)
+    table = torch.empty((7, 1), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        cuda_gather.gather_chains(words.view(-1), table, 2, 4)
     # mixed CPU and non-CPU inputs are refused too
     with pytest.raises(ValueError, match="CPU or on one CUDA device"):
         cuda_decode.decode_chains_words(torch.zeros((8, 4), dtype=torch.int32), words)
+    with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+        cuda_gather.gather_chains(torch.zeros(8, dtype=torch.int64), table, 2, 4)
 
 
 def test_require_checks_dtype_shape_contiguity():
